@@ -1,0 +1,126 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+The sources in ``csrc/`` compile into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), named by a hash
+of the sources and flags, under ``build/slam_torch_kernels/`` at the root
+of the checkout. The first call in a process builds it when it is missing;
+later calls reuse it. Pointers and the stream are passed as
+``ctypes.c_void_p`` and ints as ``ctypes.c_int``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import time
+
+from slam_decomposition_torch.config import build_dir
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# launcher name -> argtypes (the trailing c_void_p is the CUDA stream)
+SIGNATURES = {
+    "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path() -> pathlib.Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return build_dir() / f"libslam_chain_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the kernels if the library for these sources is missing.
+
+    Returns {"path", "seconds" (0.0 when reused), "ptxas" (nvcc's -Xptxas -v
+    report)}."""
+    out = library_path()
+    log = out.with_suffix(".ptxas.txt")
+    if out.exists() and log.exists():
+        return {"path": out, "seconds": 0.0, "ptxas": log.read_text()}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    log.write_text(proc.stdout + proc.stderr)
+    return {"path": out, "seconds": seconds, "ptxas": log.read_text()}
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes declared."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.slam_error_string.argtypes = [ctypes.c_int]
+    lib.slam_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(err: int) -> str:
+    return load().slam_error_string(err).decode()
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel entry: {"registers", "spill_stores", "spill_loads",
+    "stack_frame"}} from nvcc's -Xptxas -v report."""
+    out = {}
+    entry = props = None  # current entry function; function the next frame line describes
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props].update(
+                stack_frame=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3))
+            )
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+    return out

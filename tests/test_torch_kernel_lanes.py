@@ -1,0 +1,104 @@
+"""The CUDA kernels' lane arithmetic, compiled for the host, against the
+plain PyTorch versions.
+
+The kernels' per-lane bodies live in csrc/chain_common.cuh and compile as
+host code too; csrc/host_lanes.cpp loops them over lanes with a host C++
+compiler. This checks the hand-derived gradient and Jacobian (including the
+phase-factor derivative) and the LM / CG schedule on the CPU. The launch
+glue and the device build are covered on the card (test_torch_kernels.py,
+chip_smoke.py)."""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.ops._build import CSRC
+from slam_decomposition_torch.opt.gauss_newton import certificate
+from slam_decomposition_torch.opt.samplers import haar_sample
+
+L = 48
+
+
+@pytest.fixture(scope="module")
+def lanes(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/host_lanes.cpp")
+    out = tmp_path_factory.mktemp("lanes") / "liblanes.so"
+    subprocess.run(
+        [cxx, "-O1", "-std=c++17", "-Wno-unknown-pragmas", "-shared", "-fPIC",
+         "-I", str(CSRC), "-o", str(out), str(CSRC / "host_lanes.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.adam_host.argtypes = [P, P, P, P, I, I, I, P]
+    lib.lm_host.argtypes = [P, P, P, I, I, I, P, P]
+    lib.polish_host.argtypes = [P, P, P, I, I, I, P, P]
+    for f in (lib.adam_host, lib.lm_host, lib.polish_host):
+        f.restype = None
+    return lib
+
+
+def _p(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _inputs(k, seed):
+    a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    g64 = torch.as_tensor(a.chain_gates)
+    T = torch.as_tensor(haar_sample(L, seed=seed))
+    x0 = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2 * np.pi, (L, a.n_params)), dtype=torch.float32)
+    return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
+
+
+def _adam(lib, x0, T32, g32, sched, k):
+    out = torch.empty_like(x0)
+    lib.adam_host(_p(x0), _p(T32), _p(g32), _p(sched), sched.shape[0], k, x0.shape[0], _p(out))
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_adam_lane_matches_plain(lanes, k):
+    _, g32, _, T32, x0 = _inputs(k, 3)
+    sched = ck.adam_schedule(100)[:25].contiguous()
+    got = _adam(lanes, x0, T32, g32, sched, k)
+    # f32 association order only; 25 steps (the JAX kernel test's bound)
+    np.testing.assert_allclose(got.numpy(), ck.adam_chain_ref(x0, T32, g32, sched).numpy(), atol=5e-5)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_lm_lane_matches_plain(lanes, k):
+    _, g32, _, T32, x0 = _inputs(k, 5)
+    xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
+    xl = torch.empty_like(xa)
+    f = torch.empty(L, dtype=torch.float32)
+    lanes.lm_host(_p(xa), _p(T32), _p(g32), 8, k, L, _p(xl), _p(f))
+    _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
+    # accept/reject at the f32 floor may differ: rtol 1e-3 / atol 1e-5 on
+    # >= 99% of lanes (all 48 here)
+    assert np.isclose(f.numpy(), f_ref.numpy(), rtol=1e-3, atol=1e-5).mean() >= 0.99
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_polish_lane_matches_plain(lanes, k):
+    g64, g32, T, T32, x0 = _inputs(k, 7)
+    xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
+    xl, _ = ck.lm_chain_ref(xa, T32, g32, 8)
+    x64 = xl.double().contiguous()
+    xp = torch.empty_like(x64)
+    f = torch.empty(L, dtype=torch.float64)
+    lanes.polish_host(_p(x64), _p(T), _p(g64), 6, k, L, _p(xp), _p(f))
+    _, f_ref = ck.polish_chain_ref(x64, T, g64, 6)
+    c, c_ref = certificate(f), certificate(f_ref)
+    assert ((c <= 1e-10) == (c_ref <= 1e-10)).all() and (c <= 1e-10).any()
+    # the f64 certificate is the true f64 cost of the returned x
+    ok = c <= 1e-10
+    np.testing.assert_allclose(c[ok].numpy(), ck.square_cost(xp, T, g64)[ok].numpy(), atol=1e-13)

@@ -1,0 +1,86 @@
+"""The CUDA chain kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips without a CUDA device (decided inside the
+test, so every pytest worker collects the same tests). Run on the GPU with
+``python -m pytest tests/test_torch_kernels.py -m cuda``. chip_smoke.py
+repeats these checks at the main path's shapes."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.opt.gauss_newton import certificate
+from slam_decomposition_torch.opt.samplers import haar_sample
+
+pytestmark = pytest.mark.cuda
+L = 512
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+def _inputs(k, dev, seed=0):
+    a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    g64 = torch.as_tensor(a.chain_gates).to(dev)
+    T = torch.as_tensor(haar_sample(L, seed=seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    x0 = torch.as_tensor(rng.uniform(0, 2 * math.pi, (L, a.n_params)), dtype=torch.float32).to(dev)
+    return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_adam_kernel_matches_plain(dev, k):
+    _, g32, _, T32, x0 = _inputs(k, dev)
+    sched = ck.adam_schedule(100, device=dev)[:25].contiguous()
+    before = ck.adam_chain.launches
+    got = ck.adam_chain(x0, T32, g32, sched)
+    assert ck.adam_chain.launches == before + 1
+    want = ck.adam_chain_ref(x0, T32, g32, sched)
+    # f32 association order only; 25 steps (the JAX kernel test's bound)
+    d = (got - want).abs().amax(1)
+    assert (d <= 5e-5).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_lm_kernel_matches_plain(dev, k):
+    _, g32, _, T32, x0 = _inputs(k, dev, seed=1)
+    xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
+    before = ck.lm_chain.launches
+    _, f = ck.lm_chain(xa, T32, g32, 8)
+    assert ck.lm_chain.launches == before + 1
+    _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
+    assert torch.isclose(f, f_ref, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_polish_kernel_matches_plain(dev, k):
+    g64, g32, T, T32, x0 = _inputs(k, dev, seed=2)
+    xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
+    xl, _ = ck.lm_chain(xa, T32, g32, 8)
+    x64 = xl.double().contiguous()
+    before = ck.polish_chain.launches
+    xp, f = ck.polish_chain(x64, T, g64, 6)
+    assert ck.polish_chain.launches == before + 1
+    _, f_ref = ck.polish_chain_ref(x64, T, g64, 6)
+    c, c_ref = certificate(f), certificate(f_ref)
+    assert ((c <= 1e-10) == (c_ref <= 1e-10)).float().mean().item() >= 0.99
+    ok = c <= 1e-10
+    assert ok.any()
+    assert (c - ck.square_cost(xp, T, g64))[ok].abs().max().item() <= 1e-13
+
+
+def test_kernels_refuse_uninstantiated_depth(dev):
+    g64, g32, T, T32, _ = _inputs(2, dev)
+    g4 = torch.cat([g32, g32]).contiguous()  # k = 4
+    x = torch.zeros((L, 30), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        ck.lm_chain(x, T32, g4, 1)
