@@ -15,7 +15,21 @@ Phases, one line each (more for the build report):
      give the k histogram {2: 79029, 3: 20971}, certify every target at
      square cost <= 1e-10, and launch every kernel once per chunk it
      solves (warm-up, k buckets and rescue rounds);
-  5. result: a JSON line of the kernels, then the device line.
+  5. transpile path, counted like the main path:
+     (a) QFT-64 (2048 blocks): the sqiSwap count histogram, then
+     slam_decomposition_torch.transpile.passes.pass_manager_basic(qft(64),
+     "sqiswap", 0.25) batched on the card and as the host loop, each run
+     twice (warm, then timed), against the JAX package's durations and gate
+     counts, with no host fallback and one polish launch per k-class; the
+     timed batched pass's emitted steps re-certified on the host;
+     (b) batched synthesis of haar_sample(100000, seed=456): the count
+     histogram, every block's steps against its target, the host fallback
+     under its limit, two polish launches, and the warm seconds per stage;
+     after each of (a) and (b), the polish kernel against its plain version
+     on the analytic init's seeds of each k-class (1275 / 32 and 79029 /
+     20971 lanes), with phase 3's tolerances and outside the counted runs;
+  6. result: a JSON line of the kernels (launches summed over the main and
+     transpile runs), then the device line.
 
 Any failure exits non-zero before the result lines. There is no CPU path:
 without CUDA the script exits with status 1.
@@ -47,6 +61,17 @@ ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
 ADAM_COST_FRAC_TOL = 0.01
 LM_RTOL, LM_ATOL, LM_LANE_FRAC = 1e-3, 1e-5, 0.99
 POLISH_VERDICT_FRAC, POLISH_COST_ATOL, CERT_ATOL = 0.999, 1e-11, 1e-13
+# transpile phase. QFT-64's reference values are the JAX package's own
+# (pass_manager_basic on its CPU backend, command in PERF.md): the host loop
+# emits 2722 sqiSwaps; the batched path counts the 38 blocks cp(pi/2^26)
+# (chamber x = 7.5e-9, under the count's 1e-8 identity tolerance) as k=0
+# and emits them as certified products, hence 2646 there, in both packages
+# (tests/test_torch_transpile.py::test_tiny_cp_blocks_take_the_product_path)
+QFT_Q, QFT_BLOCKS, QFT_HIST, QFT_DURATION = 64, 2048, {0: 741, 2: 1275, 3: 32}, 190.0
+QFT_GATES_HOST = {"u1q": 5508, "riswap": 2722}
+QFT_GATES_BATCHED = {"u1q": 5356, "riswap": 2646}
+SYNTH_ATOL = 1e-10  # the host routine's trace-infidelity bar (transpile/kak.py)
+SYNTH_FALLBACK_MAX = 10  # host fallbacks allowed in the Haar batch (PERF.md)
 
 
 class SmokeFailure(RuntimeError):
@@ -104,7 +129,6 @@ def phase_parity():
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
     from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.opt.gauss_newton import certificate
     from slam_decomposition_torch.opt.samplers import haar_sample
 
     dev = torch.device("cuda")
@@ -155,31 +179,58 @@ def phase_parity():
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
 
-        # polish from each target's best restart: the certificates must give
-        # the same <= 1e-10 verdicts and agree within 10% of the bar where
-        # both certify (J is f32 in both, so an LM step at the f32 floor can
-        # be accepted in one and rejected in the other), and the kernel's
-        # certificate must match the true f64 cost of its x
+        # polish from each target's best restart
         best = torch.argmin(fl.view(CHUNK, RESTARTS), dim=1)
         xb = xl.view(CHUNK, RESTARTS, n)[torch.arange(CHUNK, device=dev), best].double().contiguous()
-        (xp, fp), ms = timed_ms(lambda: ck.polish_chain(xb, T, g64))
-        (_, fp_ref), plain_ms = timed_ms(lambda: ck.polish_chain_ref(xb, T, g64))
-        c, c_ref = certificate(fp), certificate(fp_ref)
-        verdict = ((c <= THRESH) == (c_ref <= THRESH)).double().mean().item()
-        both = (c <= THRESH) & (c_ref <= THRESH)
-        err = (c - c_ref)[both].abs().max().item() if both.any() else 0.0
-        true = ck.square_cost(xp, T, g64)
-        cert_err = (c - true)[c <= THRESH].abs().max().item()
-        print(f"[parity] polish_chain k={k} L={xb.shape[0]}: certified {int((c <= THRESH).sum())} vs plain "
-              f"{int((c_ref <= THRESH).sum())}, same verdict on {verdict:.5f} of lanes (need >= {POLISH_VERDICT_FRAC}), "
-              f"max|d cost| where both certify {err:.3e} (need <= {POLISH_COST_ATOL:g}), certificate vs true f64 cost "
-              f"{cert_err:.3e} (need <= {CERT_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(verdict >= POLISH_VERDICT_FRAC and err <= POLISH_COST_ATOL and cert_err <= CERT_ATOL,
-              f"polish_chain k={k} disagrees with its plain version")
+        err, ms, plain_ms = polish_parity(f"k={k}", xb, T, g64)
         st = stats["polish_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
     return stats
+
+
+def polish_parity(label, x, T, g64):
+    """The polish kernel against its plain version from the same x (L, n)
+    f64: the certificates must give the same <= THRESH verdicts and agree
+    within 10% of the bar where both certify (J is f32 in both, so an LM
+    step at the f32 floor can be accepted in one and rejected in the
+    other), and the kernel's certificate must match the true f64 cost of
+    its x. Returns (max |d cost| where both certify, kernel ms, plain ms)."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import certificate
+
+    (xp, fp), ms = timed_ms(lambda: ck.polish_chain(x, T, g64))
+    (_, fp_ref), plain_ms = timed_ms(lambda: ck.polish_chain_ref(x, T, g64))
+    c, c_ref = certificate(fp), certificate(fp_ref)
+    verdict = ((c <= THRESH) == (c_ref <= THRESH)).double().mean().item()
+    both = (c <= THRESH) & (c_ref <= THRESH)
+    err = (c - c_ref)[both].abs().max().item() if both.any() else 0.0
+    true = ck.square_cost(xp, T, g64)
+    cert = c <= THRESH
+    cert_err = (c - true)[cert].abs().max().item() if cert.any() else 0.0
+    print(f"[parity] polish_chain {label} L={x.shape[0]}: certified {int(cert.sum())} vs plain "
+          f"{int((c_ref <= THRESH).sum())}, same verdict on {verdict:.5f} of lanes (need >= {POLISH_VERDICT_FRAC}), "
+          f"max|d cost| where both certify {err:.3e} (need <= {POLISH_COST_ATOL:g}), certificate vs true f64 cost "
+          f"{cert_err:.3e} (need <= {CERT_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    check(verdict >= POLISH_VERDICT_FRAC and err <= POLISH_COST_ATOL and cert_err <= CERT_ATOL,
+          f"polish_chain {label} disagrees with its plain version")
+    return err, ms, plain_ms
+
+
+def polish_parity_on_init(label, U, ks, dev):
+    """polish_parity at the transpile path's shapes and inputs: per k-class
+    of U, the analytic init's x (the seeds the batched synthesis polishes).
+    Returns the largest max |d cost|."""
+    from slam_decomposition_torch.opt.gauss_newton import make_analytic_solver
+
+    worst = 0.0
+    for k in (2, 3):
+        solver = make_analytic_solver(k, dev)
+        T = torch.as_tensor(U[ks == k]).to(dev).contiguous()
+        x = solver.init_only(T).to(torch.float64).contiguous()
+        err, _, _ = polish_parity(f"{label} k={k} (analytic-init seeds)", x, T, solver.base.gates64)
+        worst = max(worst, err)
+    return worst
 
 
 def phase_main_path(card):
@@ -208,7 +259,129 @@ def phase_main_path(card):
     check(r.n_certified == B, f"certified {r.n_certified} of {B}")
     check(worst <= THRESH, f"worst loss {worst} > {THRESH}")
     check(all(v == want for v in counts.values()), f"launches {counts}, expected {want} of each kernel")
-    return counts
+    return counts, r.n_certified / t["total"]
+
+
+def contract(results, U):
+    """How many (steps, n) results meet the synthesis contract, and the worst
+    phase-sensitive trace infidelity 1 - Re tr(V^dag U)/4: V =
+    steps_to_matrix(steps) reproduces its target within SYNTH_ATOL, global
+    phase included, with n sqiswap steps. Vectorized: blocks are grouped by
+    step structure, so the matrix products run once per structure."""
+    from slam_decomposition_torch.transpile.kak import SQISWAP_M
+
+    groups = {}
+    for i, (steps, _) in enumerate(results):
+        groups.setdefault(tuple(kind for kind, _ in steps), []).append(i)
+    infid = np.empty(len(U))
+    n_sq = np.empty(len(U), dtype=np.int64)
+    for kinds, idx in groups.items():
+        V = np.broadcast_to(np.eye(4, dtype=complex), (len(idx), 4, 4))
+        for j, kind in enumerate(kinds):
+            if kind == "sqiswap":
+                V = SQISWAP_M @ V
+            elif kind == "1q":
+                l = np.stack([results[i][0][j][1][0] for i in idx])
+                r = np.stack([results[i][0][j][1][1] for i in idx])
+                V = np.einsum("mab,mcd->macbd", l, r).reshape(-1, 4, 4) @ V
+            else:
+                V = np.exp(1j * np.array([results[i][0][j][1] for i in idx]))[:, None, None] * V
+        infid[idx] = 1.0 - np.einsum("mij,mij->m", V.conj(), U[idx]).real / 4.0
+        n_sq[idx] = kinds.count("sqiswap")
+    ok = (infid <= SYNTH_ATOL) & (n_sq == np.array([n for _, n in results]))
+    return int(ok.sum()), float(infid.max())
+
+
+def _hist(ns):
+    vals, cnt = np.unique(np.asarray(ns), return_counts=True)
+    return {int(v): int(c) for v, c in zip(vals, cnt)}
+
+
+def phase_transpile(card, main_rate):
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+    from slam_decomposition_torch.transpile import library
+    from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
+    from slam_decomposition_torch.transpile.consolidate import consolidate_2q_blocks
+    from slam_decomposition_torch.transpile.passes import pass_manager_basic
+
+    dev = torch.device("cuda")
+    total = {name: 0 for name in REPLACES}
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 before and read after."""
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ck.launch_counts()
+        for name in total:
+            total[name] += got[name]
+        return out, wall, got
+
+    def pass_twice(batched, stats=None):
+        run = lambda: pass_manager_basic(circ, "sqiswap", 0.25, batched=batched, device=dev, stats=stats)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        if not batched:
+            t0 = time.perf_counter()
+            return run(), time.perf_counter() - t0, None
+        return counted(run)
+
+    # (a) QFT-64, the repo's largest transpile circuit
+    circ = library.qft(QFT_Q)
+    Us = np.stack([b.unitary for b in consolidate_2q_blocks(circ)])
+    ks = sqiswap_count_batch(Us, device=dev)
+    hist = _hist(ks)
+    print(f"[transpile] qft({QFT_Q}): {len(Us)} blocks, sqiswap counts {hist}")
+    check(len(Us) == QFT_BLOCKS, f"qft({QFT_Q}) consolidates to {len(Us)} blocks, not {QFT_BLOCKS}")
+    check(hist == QFT_HIST, f"qft({QFT_Q}) counts {hist} != {QFT_HIST}")
+    stats = {}
+    (_, m_b), t_b, launches = pass_twice(True, stats)
+    emitted = stats.pop("results")  # the timed pass's (steps, n) per block
+    (_, m_h), t_h, _ = pass_twice(False)
+    print(f"[transpile] qft({QFT_Q}) batched: duration {m_b['duration']}, gates {m_b['gate_counts']}, stats {stats}, "
+          f"launches {launches}; host loop: duration {m_h['duration']}, gates {m_h['gate_counts']}")
+    print(f"[transpile] {card}: qft({QFT_Q}) pass_manager_basic warm {t_b:.3f} s batched vs {t_h:.3f} s host loop")
+    check(m_b["duration"] == QFT_DURATION == m_h["duration"], "qft-64 duration differs from the reference")
+    check(m_b["gate_counts"] == QFT_GATES_BATCHED, f"batched gate counts {m_b['gate_counts']} != {QFT_GATES_BATCHED}")
+    check(m_h["gate_counts"] == QFT_GATES_HOST, f"host gate counts {m_h['gate_counts']} != {QFT_GATES_HOST}")
+    check(stats == {"device": QFT_BLOCKS - QFT_HIST[0], "fallback": 0, "trivial": QFT_HIST[0]},
+          f"qft-64 stats {stats}")
+    check(launches["polish_chain"] == 2 and launches["adam_chain"] == launches["lm_chain"] == 0,
+          f"qft-64 batched pass launches {launches}, expected 2 polish")
+    # the timed pass's emitted steps, re-certified on the host
+    ok, worst = contract(emitted, Us)
+    hist = _hist([n for _, n in emitted])
+    print(f"[transpile] qft({QFT_Q}) emitted steps: {ok}/{len(Us)} meet the contract, worst trace infidelity "
+          f"{worst:.3e} (need <= {SYNTH_ATOL:g}); emitted counts {hist}")
+    check(ok == len(Us), f"{len(Us) - ok} qft-64 blocks miss the contract")
+    check(hist == QFT_HIST, f"qft-64 emitted counts {hist} != {QFT_HIST}")
+    # the polish kernel against its plain version at this path's shapes
+    err_a = polish_parity_on_init(f"qft({QFT_Q})", Us, ks, dev)
+
+    # (b) full width: the Haar batch of the main path
+    U = haar_sample(B, seed=SEED)
+    sqiswap_decompose_batch(haar_sample(B, seed=SEED + 1), device=dev)  # warm-up on other data
+    stats, times = {}, {}
+    res, wall, launches = counted(lambda: sqiswap_decompose_batch(U, stats=stats, device=dev, times=times))
+    ks = np.array([n for _, n in res])
+    hist = _hist(ks)
+    ok, worst = contract(res, U)
+    print(f"[transpile] haar {B} (seed {SEED}): counts {hist}; {ok}/{B} meet the contract (worst trace infidelity "
+          f"{worst:.3e}); stats {stats} (fallback limit {SYNTH_FALLBACK_MAX}); launches {launches}")
+    print(f"[transpile] {card}: haar {B} warm count {times['count']:.3f} s, init {times['init']:.3f} s, "
+          f"polish {times['polish']:.3f} s, host emit {times['emit']:.3f} s; total {wall:.3f} s -> "
+          f"{B / wall:.1f} blocks/s (main path: {main_rate:.1f} targets/s)")
+    check(hist == WANT_HIST, f"haar counts {hist} != {WANT_HIST}")
+    check(ok == B, f"{B - ok} of {B} blocks miss the contract")
+    check(stats["fallback"] <= SYNTH_FALLBACK_MAX, f"fallback {stats['fallback']} > {SYNTH_FALLBACK_MAX}")
+    check(launches["polish_chain"] == 2 and launches["adam_chain"] == launches["lm_chain"] == 0,
+          f"haar batch launches {launches}, expected 2 polish")
+    err_b = polish_parity_on_init(f"haar {B}", U, ks, dev)
+    print(f"[transpile] launches summed over the transpile runs: {total}")
+    return total, max(err_a, err_b)
 
 
 def main() -> int:
@@ -221,7 +394,10 @@ def main() -> int:
         card = phase_device()
         phase_build()
         stats = phase_parity()
-        counts = phase_main_path(card)
+        counts, main_rate = phase_main_path(card)
+        t_counts, t_polish_err = phase_transpile(card, main_rate)
+        counts = {name: counts[name] + t_counts[name] for name in counts}
+        stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,6 @@
-"""Monodromy coordinates of 2Q unitaries (JAX ops/weyl.py:46-83, 158-170,
-226-250), all in f64 on native complex128 tensors.
+"""Monodromy and Weyl-chamber coordinates of 2Q unitaries (JAX
+ops/weyl.py:46-120, 158-170, 205-250), all in f64 on native complex128
+tensors.
 
 Conventions are the JAX package's: magic basis
 B = (1/sqrt2)[[1,0,0,i],[0,i,1,0],[0,i,-1,0],[1,0,0,-i]], m = M^T M with
@@ -105,3 +106,36 @@ def monodromy_coords(U: torch.Tensor) -> torch.Tensor:
     a1 >= a2 >= a3 >= a4, sum(a) = 0, a1 - a4 <= 1. The second is
     shift(a + 1/2), the class of -U."""
     return _phases_to_reps(gamma_eigenphases(U))
+
+
+def _canonicalize_c(c: torch.Tensor) -> torch.Tensor:
+    """Map coordinate triples (units of pi/2, any real values) into the Weyl
+    chamber {c1 >= c2 >= c3 >= 0, c1 + c2 <= 1}. Branch-free (JAX
+    weyl.py:86-106)."""
+    c = torch.remainder(c, 1.0)
+    for _ in range(3):
+        c = _sort_desc(c)
+        cond = (c[..., 0] + c[..., 1]) > 1.0
+        folded = torch.stack([1.0 - c[..., 1], 1.0 - c[..., 0], c[..., 2]], dim=-1)
+        c = torch.where(cond[..., None], torch.remainder(folded, 1.0), c)
+    c = _sort_desc(c)
+    # on the c3 = 0 plane, (c1, c2, 0) ~ (1 - c1, c2, 0): take the left side
+    boundary = (c[..., 2] < 1e-7) & (c[..., 0] > 0.5)
+    folded = torch.stack([1.0 - c[..., 0], c[..., 1], c[..., 2]], dim=-1)
+    return _sort_desc(torch.where(boundary[..., None], folded, c))
+
+
+def _phases_to_c(th: torch.Tensor) -> torch.Tensor:
+    """Eigenphases -> canonical Weyl-chamber c1c2c3. The fourth phase is
+    re-lifted so the sum is exactly 0; the pairs (v_k + v_3)/2 form a signed
+    permutation with an odd number of sign flips, hence the negation."""
+    t3 = -(th[..., 0] + th[..., 1] + th[..., 2])
+    ctil = (th[..., :3] + t3[..., None]) / 4.0
+    return _canonicalize_c(-ctil / (np.pi / 2.0))
+
+
+def c1c2c3(U: torch.Tensor) -> torch.Tensor:
+    """Weyl chamber coordinates (..., 3) in the weylchamber package's units
+    and convention: CNOT = (1/2, 0, 0), iSwap = (1/2, 1/2, 0), SWAP =
+    (1/2, 1/2, 1/2), B = (1/2, 1/4, 0)."""
+    return _phases_to_c(gamma_eigenphases(U))

@@ -1,5 +1,6 @@
-"""Multi-start chain solver: Adam warm start, f32 LM ranking, f64 LM polish
-(JAX opt/gauss_newton.py:220-620, phase residual only).
+"""Chain solvers (JAX opt/gauss_newton.py:220-675, phase residual only).
+
+The multi-start solver: Adam warm start, f32 LM ranking, f64 LM polish.
 
 ``make_solver(chain_gates)`` builds a ``ChainSolver`` whose ``solve``
 takes x0s (B, R, n) and targets (B, 4, 4) and returns the polished best
@@ -15,6 +16,9 @@ restart per target with its certified square cost:
 
 On CUDA tensors the three steps are the hand-written kernels; on CPU
 tensors their plain PyTorch versions.
+
+``make_analytic_solver(k, device)`` replaces steps 1-2 by one batched
+analytic synthesis (ops/kak_batch.make_analytic_init) and keeps the polish.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import numpy as np
 import torch
 
 from slam_decomposition_torch.convert import chain_gates_from_numpy
+from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.ops.kak_batch import make_analytic_init
 
 
 def certificate(f: torch.Tensor) -> torch.Tensor:
@@ -70,3 +77,39 @@ class ChainSolver:
 
 
 make_solver = ChainSolver  # the JAX package's name for the constructor
+
+
+class AnalyticSolver:
+    """The analytic-warm-start solver of the k-application sqrt(iSwap)
+    template (JAX gauss_newton.py:623-675): one batched f64 KAK synthesis
+    seeds every lane inside the polish's basin, replacing the Adam
+    multi-restart and f32 LM ranking phases.
+
+    ``solve(tgt)`` takes (B, 4, 4) complex targets of the k-class and
+    returns (x (B, n) f64, true f64 square cost (B,)); ``init_only(tgt)``
+    is the synthesis alone; ``repolish(x, tgt)`` polishes and certifies an
+    existing iterate (the same polish, the damping restarted)."""
+
+    def __init__(self, k: int, device="cpu"):
+        self.k = k
+        self.base = ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device)
+        self.device = self.base.device
+        self.n_params = self.base.n_params
+        self.init_only = make_analytic_init(k, self.device)
+
+    def _targets(self, tgt) -> torch.Tensor:
+        return torch.as_tensor(tgt).to(device=self.device, dtype=torch.complex128).contiguous()
+
+    def solve(self, tgt):
+        tgt = self._targets(tgt)
+        return self.repolish(self.init_only(tgt), tgt)
+
+    __call__ = solve
+
+    def repolish(self, x: torch.Tensor, tgt):
+        tgt = self._targets(tgt)
+        x = self.base.polish(x.to(self.device, torch.float64).contiguous(), tgt)
+        return x, self.base.certify(x, tgt)
+
+
+make_analytic_solver = AnalyticSolver  # the JAX package's name for the constructor

@@ -15,7 +15,9 @@ from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import certificate
-from slam_decomposition_torch.opt.samplers import haar_sample
+from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+from slam_decomposition_torch.transpile import kak
+from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 
 pytestmark = pytest.mark.cuda
 L = 512
@@ -84,3 +86,34 @@ def test_kernels_refuse_uninstantiated_depth(dev):
     x = torch.zeros((L, 30), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         ck.lm_chain(x, T32, g4, 1)
+
+
+def test_batch_synth_on_the_card(dev):
+    """The transpile path's batched synthesis on CUDA: one polish launch per
+    k-class, every lane certified from the device solve, and the same step
+    count per block as the CPU's plain path (tests/test_torch_transpile.py's
+    mixed batch: 24 Haar targets and the degenerate zoo)."""
+    zoo = np.stack(
+        [
+            np.eye(4, dtype=complex),
+            np.kron(kak._rz(0.3), kak._rx(1.1)),
+            kak.SQISWAP_M,
+            kak.can_matrix(0.2, 0.2, 0.0),
+            kak.can_matrix(np.pi / 4, 0.1, 0.1),
+            kak.can_matrix(0.3, 0.15, 0.15),
+            kak.can_matrix(np.pi / 4, np.pi / 4, np.pi / 4),
+            kak.can_matrix(np.pi / 4, np.pi / 8, np.pi / 8),
+        ]
+    )
+    U = np.concatenate([haar_sample(24, seed=11), zoo])
+    stats = {}
+    before = ck.polish_chain.launches
+    res = sqiswap_decompose_batch(U, stats=stats, device=dev)
+    assert ck.polish_chain.launches == before + 2
+    assert stats["fallback"] == 0, stats
+    assert stats["device"] == int((sqiswap_count_batch(U, device=dev) >= 2).sum())
+    cpu = sqiswap_decompose_batch(U, device="cpu")
+    assert [n for _, n in res] == [n for _, n in cpu]
+    for (steps, _), u in zip(res, U):
+        V = kak.steps_to_matrix(steps)
+        assert 1.0 - abs(np.trace(V.conj().T @ u)) / 4.0 <= 1e-10
