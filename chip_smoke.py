@@ -5,11 +5,15 @@
 Phases, one line each (more for the build report):
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: compile the CUDA kernels from slam_decomposition_torch/csrc with
-     nvcc, print the build seconds and ptxas registers / spills per kernel;
+     nvcc, print the build seconds, ptxas registers / spills and the
+     resident blocks and warps per SM (CUDA occupancy calculator) of each
+     kernel instance;
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
-     polish), at k=2 and k=3, with times of both after one warm call;
+     polish), at k=2 and k=3, with times of both after one warm call, and
+     each instance's FLOPs, bound and share of the bound from the port's
+     flop model (slam_decomposition_torch/utils/mfu.py) at those shapes;
   4. main path: slam_decomposition_torch.pipeline.decompose_haar at
      B=100000, chunk=10000, restarts=4, thresh=1e-10, seed=456, which must
      give the k histogram {2: 79029, 3: 20971}, certify every target at
@@ -122,7 +126,29 @@ def phase_build():
               f"{r.get('spill_loads')} B spill loads")
     check(len(regs) >= 6, f"expected 6 kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
+    for name in REPLACES:
+        for k in (2, 3):
+            o = _build.occupancy(name, k)
+            print(f"[build] occupancy {name}<{k}>: {o['blocks']} resident blocks x {o['threads']} threads = "
+                  f"{o['warps']} warps per SM")
     return regs
+
+
+def fresh_iterations(fn, x, T, g, iters):
+    """Mean number per lane of the LM iterations that rebuild J, A and b:
+    the first, and each after an accepted step. fn(x, T, g, i) runs the
+    first i iterations (the same ones for any count), so step i was
+    accepted iff ||r||^2 after i + 1 iterations is below that after i."""
+    f = [fn(x, T, g, i)[1] for i in range(iters)]
+    accepted = sum((f[i] < f[i - 1]).double() for i in range(1, iters))
+    return 1.0 + accepted.mean().item()
+
+
+def bound_line(name, k, bound, ms):
+    """Print and return the instance's bound against its measured time."""
+    print(f"[bound] {name} k={k}: {bound['flops']:.4e} flops, {bound['bytes']} B -> bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}); kernel {ms:.3f} ms = {bound['bound_ms'] / ms:.1%} of the bound")
+    return bound
 
 
 def phase_parity():
@@ -130,6 +156,7 @@ def phase_parity():
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
     stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
@@ -165,6 +192,7 @@ def phase_parity():
         st = stats["adam_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], d.max().item())
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
+        st[f"bound_k{k}"] = bound_line("adam_chain", k, mfu.adam_launch(k, x0.shape[0], sched.shape[0]), ms)
 
         # LM: compare ||r||^2 per lane; accept/reject decisions near the f32
         # floor may differ, hence the lane fraction (the JAX kernel test's bound)
@@ -178,6 +206,9 @@ def phase_parity():
         st = stats["lm_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
+        fresh = fresh_iterations(ck.lm_chain, xa, lanes_t, g32, ck.LM32_ITERS)
+        print(f"[bound] lm_chain k={k}: {fresh:.3f} of {ck.LM32_ITERS} iterations per lane rebuild J")
+        st[f"bound_k{k}"] = bound_line("lm_chain", k, mfu.lm_launch(k, xa.shape[0], ck.LM32_ITERS, fresh), ms)
 
         # polish from each target's best restart
         best = torch.argmin(fl.view(CHUNK, RESTARTS), dim=1)
@@ -186,6 +217,9 @@ def phase_parity():
         st = stats["polish_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
+        fresh = fresh_iterations(ck.polish_chain, xb, T, g64, ck.LM_ITERS)
+        print(f"[bound] polish_chain k={k}: {fresh:.3f} of {ck.LM_ITERS} iterations per lane rebuild J")
+        st[f"bound_k{k}"] = bound_line("polish_chain", k, mfu.polish_launch(k, xb.shape[0], ck.LM_ITERS, fresh), ms)
     return stats
 
 
@@ -411,8 +445,14 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": stats[name]["ms_k2"],
             "plain_ms": stats[name]["plain_ms_k2"],
+            "bound_ms": stats[name]["bound_k2"]["bound_ms"],
+            "bound_by": stats[name]["bound_k2"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a per-lane solve
+            "flops": stats[name]["bound_k2"]["flops"],
             "ms_k3": stats[name]["ms_k3"],
             "plain_ms_k3": stats[name]["plain_ms_k3"],
+            "bound_ms_k3": stats[name]["bound_k3"]["bound_ms"],
+            "flops_k3": stats[name]["bound_k3"]["flops"],
         }
         for name in REPLACES
     ]

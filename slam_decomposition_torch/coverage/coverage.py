@@ -16,7 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
-from slam_decomposition_torch.config import data_dir
+from slam_decomposition_torch.config import data_dir, device_of
 from slam_decomposition_torch.coverage.polytope import Polytope
 from slam_decomposition_torch.ops import weyl
 
@@ -104,15 +104,14 @@ def monodromy_ks_batch(coverage, targets, device=None) -> np.ndarray:
 
     0 for the identity class, otherwise the operation count of the
     cheapest covering layer. Runs on ``device`` (default: the targets'
-    device, or the CPU for numpy input) in batches of KS_CHUNK targets,
+    device, or the card for numpy input) in batches of KS_CHUNK targets,
     which bounds the (targets x reps x subpolytopes x rows) membership
     tensor."""
+    device = device_of(targets, device)
     if isinstance(targets, np.ndarray):
         targets = torch.as_tensor(targets)
     if targets.ndim == 2:
         targets = targets[None]
-    if device is None:
-        device = targets.device
     A_in, A_eq, tol_in, tol_eq, onehot, ks_of_layer = _layer_tables(coverage, device)
     out = []
     for s in range(0, targets.shape[0], KS_CHUNK):

@@ -1,9 +1,8 @@
-// Per-lane math shared by the three chain kernels (adam_chain.cu,
-// lm_chain.cu, polish_chain.cu). Replaces the device helpers of the JAX
-// package's ops/pallas_chain.py:40-149 (_u3, _layer, _matmul4,
-// _const_matmul, _chain, _phase_residual_tiles) and, with derivatives
-// written out by hand, the jax.grad / jax.linearize calls inside those
-// kernels.
+// Math shared by the three chain kernels (adam_chain.cu, lm_chain.cu,
+// polish_chain.cu). Replaces the device helpers of the JAX package's
+// ops/pallas_chain.py:40-149 (_u3, _layer, _matmul4, _const_matmul, _chain,
+// _phase_residual_tiles) and, with derivatives written out by hand, the
+// jax.grad / jax.linearize calls inside those kernels.
 //
 // The chain is U(x) = L_K G_{K-1} ... L_1 G_0 L_0 with
 // L_i = u3(x[6i..6i+2]) (x) u3(x[6i+3..6i+5]) and constant 2Q gates G_i.
@@ -14,12 +13,18 @@
 //   P_0 = I, P_{i+1} = G_i L_i P_i          (what stands right of L_i)
 //   S_K = I, S_{i-1} = S_i L_i G_{i-1}      (what stands left of L_i)
 //   U = S_i L_i P_i for every i, so dU/dx_p = S_i (dL_i/dx_p) P_i.
-// The Adam gradient only needs t = tr(T^dag U) and its derivatives: with
-// W_i = P_i T^dag S_i, dt/dx_p = sum_ab W_i[b][a] dL_i[a][b], which the
-// Kronecker structure of L_i reduces to 2x2 contractions.
+//
+// What is here: complex 2x2 / 4x4 helpers; u3 from a table of its sines
+// and cosines (Trig), with one derivative at a time; products with a
+// Kronecker layer applied to one column or row (kron_col, kron_row);
+// the gates as lists of their nonzeros (GateNz), multiplied by one column
+// or row; the team types that run the Adam and LM programs (adam_team.cuh,
+// lm_team.cuh) on the card and, step by step, on the host; and the
+// one-thread LM body of the polish (lm_lane<double, K>, polish_lane_io).
 //
 // SLAM_HD makes every function callable from host code as well, so the
-// lane bodies can be compiled and checked by a host C++ compiler.
+// lane programs can be compiled and checked by a host C++ compiler
+// (host_lanes.cpp).
 
 #pragma once
 
@@ -40,10 +45,6 @@ namespace slam {
 
 // ------------------------------------------------------------ scalars
 
-SLAM_HD float sin_(float v) { return sinf(v); }
-SLAM_HD double sin_(double v) { return sin(v); }
-SLAM_HD float cos_(float v) { return cosf(v); }
-SLAM_HD double cos_(double v) { return cos(v); }
 SLAM_HD float sqrt_(float v) { return sqrtf(v); }
 SLAM_HD double sqrt_(double v) { return sqrt(v); }
 
@@ -70,6 +71,9 @@ template <typename T> SLAM_HD C<T> cjmul(C<T> a, C<T> b) {
 }
 
 template <typename T> struct M2 { C<T> e[4]; };   // row-major 2x2
+// four floats read as one 16-byte shared-memory load
+struct alignas(16) F4 { float v[4]; };
+SLAM_HD const F4& f4(const float* p) { return *reinterpret_cast<const F4*>(p); }
 template <typename T> struct M4 { C<T> e[16]; };  // row-major 4x4
 
 template <typename T> SLAM_HD void set_identity(M4<T>& A) {
@@ -101,33 +105,223 @@ template <typename T> SLAM_HD C<T> overlap(const M4<T>& Tg, const M4<T>& U) {
 
 // ------------------------------------------------------------ layers
 
-// qiskit u3(theta, phi, lam) from a[0..2]; with dU != nullptr also the
-// three partial derivatives dU[0] (theta), dU[1] (phi), dU[2] (lam).
-template <typename T> SLAM_HD void u3(const T* a, M2<T>& U, M2<T>* dU) {
-  const T c = cos_(a[0] * T(0.5)), s = sin_(a[0] * T(0.5));
-  const T cp = cos_(a[1]), sp = sin_(a[1]);
-  const T cl = cos_(a[2]), sl = sin_(a[2]);
-  const T cpl = cos_(a[1] + a[2]), spl = sin_(a[1] + a[2]);
+// The eight sines and cosines one u3(theta, phi, lam) is built from.
+template <typename T> struct Trig { T c, s, cp, sp, cl, sl, cpl, spl; };
+
+// one range reduction for both on the card (the same values as sinf, cosf)
+SLAM_HD void sincos_(float v, float* s, float* c) {
+#if defined(__CUDA_ARCH__)
+  sincosf(v, s, c);
+#else
+  *s = sinf(v);
+  *c = cosf(v);
+#endif
+}
+SLAM_HD void sincos_(double v, double* s, double* c) {
+  *s = sin(v);
+  *c = cos(v);
+}
+
+template <typename T> SLAM_HD Trig<T> u3_trig(const T* a) {
+  Trig<T> g;
+  sincos_(a[0] * T(0.5), &g.s, &g.c);
+  sincos_(a[1], &g.sp, &g.cp);
+  sincos_(a[2], &g.sl, &g.cl);
+  sincos_(a[1] + a[2], &g.spl, &g.cpl);
+  return g;
+}
+
+// The partial derivative of u3(theta, phi, lam) in angle j (0 theta, 1
+// phi, 2 lam), from its sines and cosines.
+template <typename T> SLAM_HD void u3_deriv(const Trig<T>& g, int j, M2<T>& dU) {
+  const T c = g.c, s = g.s, cp = g.cp, sp = g.sp, cl = g.cl, sl = g.sl, cpl = g.cpl, spl = g.spl;
+  const T h = T(0.5);
+  if (j == 0) {
+    dU.e[0] = cmk(-h * s, T(0));
+    dU.e[1] = cmk(-h * cl * c, -h * sl * c);
+    dU.e[2] = cmk(h * cp * c, h * sp * c);
+    dU.e[3] = cmk(-h * cpl * s, -h * spl * s);
+  } else if (j == 1) {
+    dU.e[0] = cmk(T(0), T(0));
+    dU.e[1] = cmk(T(0), T(0));
+    dU.e[2] = cmk(-sp * s, cp * s);
+    dU.e[3] = cmk(-spl * c, cpl * c);
+  } else {
+    dU.e[0] = cmk(T(0), T(0));
+    dU.e[1] = cmk(sl * s, -cl * s);
+    dU.e[2] = cmk(T(0), T(0));
+    dU.e[3] = cmk(-spl * c, cpl * c);
+  }
+}
+
+// qiskit u3(theta, phi, lam) from its sines and cosines; with dU !=
+// nullptr also the three partial derivatives dU[0] (theta), dU[1] (phi),
+// dU[2] (lam).
+template <typename T> SLAM_HD void u3_build(const Trig<T>& g, M2<T>& U, M2<T>* dU) {
+  const T c = g.c, s = g.s, cp = g.cp, sp = g.sp, cl = g.cl, sl = g.sl, cpl = g.cpl, spl = g.spl;
   U.e[0] = cmk(c, T(0));
   U.e[1] = cmk(-cl * s, -sl * s);
   U.e[2] = cmk(cp * s, sp * s);
   U.e[3] = cmk(cpl * c, spl * c);
   if (dU) {
-    const T h = T(0.5);
-    dU[0].e[0] = cmk(-h * s, T(0));
-    dU[0].e[1] = cmk(-h * cl * c, -h * sl * c);
-    dU[0].e[2] = cmk(h * cp * c, h * sp * c);
-    dU[0].e[3] = cmk(-h * cpl * s, -h * spl * s);
-    dU[1].e[0] = cmk(T(0), T(0));
-    dU[1].e[1] = cmk(T(0), T(0));
-    dU[1].e[2] = cmk(-sp * s, cp * s);
-    dU[1].e[3] = cmk(-spl * c, cpl * c);
-    dU[2].e[0] = cmk(T(0), T(0));
-    dU[2].e[1] = cmk(sl * s, -cl * s);
-    dU[2].e[2] = cmk(T(0), T(0));
-    dU[2].e[3] = cmk(-spl * c, cpl * c);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) u3_deriv(g, j, dU[j]);
   }
 }
+
+// qiskit u3(theta, phi, lam) from a[0..2] (and its derivatives, as u3_build)
+template <typename T> SLAM_HD void u3(const T* a, M2<T>& U, M2<T>* dU) {
+  u3_build(u3_trig(a), U, dU);
+}
+
+// w = (A (x) B) v for a column 4-vector v: w[2a+c] = sum_b A[a][b] sum_d B[c][d] v[2b+d]
+template <typename T> SLAM_HD void kron_col(const M2<T>& A, const M2<T>& B, const C<T>* v, C<T>* w) {
+  C<T> Y[2][2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) Y[b][c] = cadd(cmul(B.e[2 * c], v[2 * b]), cmul(B.e[2 * c + 1], v[2 * b + 1]));
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) w[2 * a + c] = cadd(cmul(A.e[2 * a], Y[0][c]), cmul(A.e[2 * a + 1], Y[1][c]));
+}
+
+// w = u^T (A (x) B) for a row 4-vector u: w[2b+d] = sum_a A[a][b] sum_c u[2a+c] B[c][d]
+template <typename T> SLAM_HD void kron_row(const M2<T>& A, const M2<T>& B, const C<T>* u, C<T>* w) {
+  C<T> Y[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int d = 0; d < 2; ++d) Y[a][d] = cadd(cmul(u[2 * a], B.e[d]), cmul(u[2 * a + 1], B.e[2 + d]));
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int d = 0; d < 2; ++d) w[2 * b + d] = cadd(cmul(A.e[b], Y[0][d]), cmul(A.e[2 + b], Y[1][d]));
+}
+
+// ------------------------------------------------------------ sparse gates
+
+// The nonzero entries of one constant gate, listed per row (for G v) and
+// per column (for u^T G), each with its kind: bit 1 a real part, bit 2 an
+// imaginary part. sqiSwap has 6 nonzeros, each purely real or purely
+// imaginary, so a product with it costs 6 two-term multiply-adds instead
+// of 16 complex ones (the TPU kernel's _const_matmul). Every thread of a
+// team multiplies by the same gate, so the loops and kind tests below are
+// uniform across the warp.
+template <typename T> struct GateNz {
+  int rn[4], cn[4];      // nonzeros in row i / column q
+  int rc[4][4], cr[4][4];  // their column / row indices
+  int rk[4][4], ck[4][4];  // their kinds
+  C<T> rv[4][4], cv[4][4];
+};
+
+// Entry idx in [0, 8K) of the lists of K gates g (K, 4, 4) interleaved
+// complex: gate idx / 8, row idx % 8 for idx % 8 < 4, else column idx % 8 - 4.
+template <typename T>
+SLAM_HD void gate_nz_entry(const T* g, GateNz<T>* out, int idx) {
+  GateNz<T>& G = out[idx / 8];
+  const T* m = g + 32 * (idx / 8);
+  const int line = idx % 8 % 4;
+  const bool row = idx % 8 < 4;
+  int n = 0;
+  for (int j = 0; j < 4; ++j) {
+    const int e = row ? 4 * line + j : 4 * j + line;
+    const T re = m[2 * e], im = m[2 * e + 1];
+    const int kind = (re != T(0) ? 1 : 0) | (im != T(0) ? 2 : 0);
+    if (kind == 0) continue;
+    if (row) { G.rc[line][n] = j; G.rk[line][n] = kind; G.rv[line][n] = cmk(re, im); }
+    else { G.cr[line][n] = j; G.ck[line][n] = kind; G.cv[line][n] = cmk(re, im); }
+    ++n;
+  }
+  if (row) G.rn[line] = n; else G.cn[line] = n;
+}
+
+// acc += g v with only the parts of g that are nonzero
+template <typename T> SLAM_HD void cmac_kind(C<T>& acc, C<T> g, int kind, C<T> v) {
+  if (kind & 1) { acc.re += g.re * v.re; acc.im += g.re * v.im; }
+  if (kind & 2) { acc.re -= g.im * v.im; acc.im += g.im * v.re; }
+}
+
+// w = G y for a column 4-vector y (y is read through the lists, so it may
+// sit in shared memory; w is indexed statically and stays in registers)
+template <typename T> SLAM_HD void gate_col(const GateNz<T>& G, const C<T>* y, C<T>* w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    C<T> acc = cmk(T(0), T(0));
+    for (int s = 0; s < G.rn[i]; ++s) cmac_kind(acc, G.rv[i][s], G.rk[i][s], y[G.rc[i][s]]);
+    w[i] = acc;
+  }
+}
+
+// w = u^T G for a row 4-vector u
+template <typename T> SLAM_HD void gate_row(const GateNz<T>& G, const C<T>* u, C<T>* w) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    C<T> acc = cmk(T(0), T(0));
+    for (int s = 0; s < G.cn[q]; ++s) cmac_kind(acc, G.cv[q][s], G.ck[q][s], u[G.cr[q][s]]);
+    w[q] = acc;
+  }
+}
+
+// ------------------------------------------------------------ teams
+// A team of S threads works on one lane (S = 32: a warp; S = 4: a quarter
+// of one). The team's program is written once, as steps: each step is a
+// loop `for (t = tm.first(); t < tm.last(); ++t)` over the team's threads
+// that reads the lane's shared workspace and tm.th(t), the thread's own
+// registers. Steps are separated by tm.sync() or by tm.sum(), a butterfly
+// sum over the team whose result every thread receives.
+//
+// On the card (DevTeam) the loop runs once, for the calling thread, and
+// th(t) is that thread's register state; sync() is __syncwarp() and sum()
+// shuffles. On the host (HostTeam, host_lanes.cpp) the loop runs over all
+// S threads one after another with an array of register states, so a step
+// must only write its own slots and read what earlier steps wrote; the
+// butterfly adds in the same order as the shuffles.
+
+#define SLAM_EACH(tm, t) for (int t = (tm).first(); t < (tm).last(); ++t)
+
+#if defined(__CUDACC__)
+template <int S, class Th> struct DevTeam {
+  int t0;
+  Th reg;
+  __device__ __forceinline__ explicit DevTeam(int t) : t0(t) {}
+  __device__ __forceinline__ int first() const { return t0; }
+  __device__ __forceinline__ int last() const { return t0 + 1; }
+  __device__ __forceinline__ Th& th(int) { return reg; }
+  __device__ __forceinline__ const Th& any() const { return reg; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  template <int n> __device__ __forceinline__ void sum(float (Th::*f)[n]) {
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      float v = (reg.*f)[i];
+#pragma unroll
+      for (int o = S / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      (reg.*f)[i] = v;
+    }
+  }
+};
+#endif
+
+template <int S, class Th> struct HostTeam {
+  Th regs[S];
+  int first() const { return 0; }
+  int last() const { return S; }
+  Th& th(int t) { return regs[t]; }
+  const Th& any() const { return regs[0]; }
+  void sync() const {}
+  template <int n> void sum(float (Th::*f)[n]) {
+    for (int i = 0; i < n; ++i) {
+      float v[S], w[S];
+      for (int t = 0; t < S; ++t) v[t] = (regs[t].*f)[i];
+      for (int o = S / 2; o > 0; o >>= 1) {
+        for (int t = 0; t < S; ++t) w[t] = v[t] + v[t ^ o];
+        for (int t = 0; t < S; ++t) v[t] = w[t];
+      }
+      for (int t = 0; t < S; ++t) (regs[t].*f)[i] = v[t];
+    }
+  }
+};
 
 // L = A (x) B: L[2a+c][2b+d] = A[a][b] B[c][d]
 template <typename T> SLAM_HD void kron2(const M2<T>& A, const M2<T>& B, M4<T>& L) {
@@ -207,91 +401,6 @@ SLAM_HD void chain_parts(const T* x, const M4<T>* G, ChainParts<T, K>& cp) {
     }
   }
   matmul4(cp.L[K], cp.P[K], cp.U);
-}
-
-// t = tr(T^dag U) and dt[p] = d t / d x_p for all 6(K+1) parameters
-// (reverse sweep over the layers with W_i = P_i T^dag S_i).
-template <typename T, int K>
-SLAM_HD C<T> overlap_grad(const T* x, const M4<T>& Tg, const M4<T>* G, C<T>* dt) {
-  ChainParts<T, K> cp;
-  chain_parts<T, K>(x, G, cp);
-  const C<T> t = overlap(Tg, cp.U);
-  M4<T> X, W, tmp;  // X_i = T^dag S_i, starting at X_K = T^dag
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) X.e[4 * a + b] = cmk(Tg.e[4 * b + a].re, -Tg.e[4 * b + a].im);
-#pragma unroll
-  for (int i = K; i >= 0; --i) {
-    matmul4(cp.P[i], X, W);
-    // CA[a1][b1] = sum W[2b1+b2][2a1+a2] B[a2][b2], CB likewise with A
-    M2<T> CA, CB;
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        C<T> ca = cmk(T(0), T(0)), cb = cmk(T(0), T(0));
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            // CA: (a1, b1) = (u, v), (a2, b2) = (p, q)
-            ca = cadd(ca, cmul(W.e[(2 * v + q) * 4 + 2 * u + p], cp.B[i].e[2 * p + q]));
-            // CB: (a2, b2) = (u, v), (a1, b1) = (p, q)
-            cb = cadd(cb, cmul(W.e[(2 * q + v) * 4 + 2 * p + u], cp.A[i].e[2 * p + q]));
-          }
-        CA.e[2 * u + v] = ca;
-        CB.e[2 * u + v] = cb;
-      }
-    M2<T> dA[3], dB[3], Ai, Bi;
-    u3(x + 6 * i, Ai, dA);
-    u3(x + 6 * i + 3, Bi, dB);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      C<T> sa = cmk(T(0), T(0)), sb = cmk(T(0), T(0));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sa = cadd(sa, cmul(dA[j].e[e], CA.e[e]));
-        sb = cadd(sb, cmul(dB[j].e[e], CB.e[e]));
-      }
-      dt[6 * i + j] = sa;
-      dt[6 * i + 3 + j] = sb;
-    }
-    if (i > 0) {  // X_{i-1} = X_i L_i G_{i-1}
-      matmul4(X, cp.L[i], tmp);
-      matmul4(tmp, G[i - 1], X);
-    }
-  }
-  return t;
-}
-
-// ------------------------------------------------------------ Adam
-
-// adam_iters Adam steps on the square cost 1 - (|t|^2 + 4)/20, in place on
-// x; sched holds [1/bias1, 1/bias2, lr] per step (JAX pallas_chain.py:701-745).
-template <int K>
-SLAM_HD void adam_lane(float* x, const M4<float>& Tg, const M4<float>* G,
-                       const float* sched, int iters) {
-  constexpr int N = 6 * (K + 1);
-  float m[N], v[N];
-  C<float> dt[N];
-#pragma unroll
-  for (int p = 0; p < N; ++p) { m[p] = 0.f; v[p] = 0.f; }
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    const C<float> t = overlap_grad<float, K>(x, Tg, G, dt);
-    const float s0 = sched[3 * it], s1 = sched[3 * it + 1], s2 = sched[3 * it + 2];
-#pragma unroll
-    for (int p = 0; p < N; ++p) {
-      // d/dx (1 - (|t|^2 + 4)/20) = -(2/20) Re(conj(t) dt)
-      const float g = -0.1f * (t.re * dt[p].re + t.im * dt[p].im);
-      m[p] = 0.9f * m[p] + 0.1f * g;
-      v[p] = 0.999f * v[p] + 0.001f * (g * g);
-      const float mhat = m[p] * s0;
-      const float vhat = v[p] * s1;
-      x[p] = x[p] - s2 * mhat / (sqrtf(vhat) + 1e-8f);
-    }
-  }
 }
 
 // ------------------------------------------------------------ LM
@@ -427,11 +536,11 @@ SLAM_HD R lm_lane(R* x, const M4<R>& Tg, const M4<float>& T32, const M4<R>* G,
   return f0;
 }
 
-// ------------------------------------------------------------ lane entries
-// One lane of each kernel from the raw arrays: load x0 and the target,
-// run, store. The CUDA kernels call these with gates in shared memory; the
-// host build (host_lanes.cpp) calls the same functions in a loop over lanes.
-// Arrays are row-major; complex values are interleaved (re, im).
+// ------------------------------------------------------------ polish lane
+// One lane of the polish from the raw arrays: load x0 and the target, run,
+// store. The CUDA kernel calls it with the gates in shared memory; the host
+// build (host_lanes.cpp) calls it in a loop over lanes. Arrays are
+// row-major; complex values are interleaved (re, im).
 
 constexpr double kFourPi = 4.0 * 3.14159265358979323846;
 
@@ -452,36 +561,6 @@ template <typename T> SLAM_HD void load_target(const T* tgt, int lane, M4<T>& Tg
   const T* t = tgt + 32 * (size_t)lane;
 #pragma unroll
   for (int e = 0; e < 16; ++e) Tg.e[e] = cmk(t[2 * e], t[2 * e + 1]);
-}
-
-template <int K>
-SLAM_HD void adam_lane_io(const float* __restrict__ x0, const float* __restrict__ tgt,
-                          const M4<float>* __restrict__ G, const float* __restrict__ sched,
-                          int iters, int lane, float* __restrict__ xout) {
-  constexpr int N = 6 * (K + 1);
-  float x[N];
-#pragma unroll
-  for (int p = 0; p < N; ++p) x[p] = x0[(size_t)lane * N + p];
-  M4<float> Tg;
-  load_target(tgt, lane, Tg);
-  adam_lane<K>(x, Tg, G, sched, iters);
-#pragma unroll
-  for (int p = 0; p < N; ++p) xout[(size_t)lane * N + p] = x[p];
-}
-
-template <int K>
-SLAM_HD void lm_lane_io(const float* __restrict__ x0, const float* __restrict__ tgt,
-                        const M4<float>* __restrict__ G, int iters, int lane,
-                        float* __restrict__ xout, float* __restrict__ fout) {
-  constexpr int N = 6 * (K + 1);
-  float x[N];
-#pragma unroll
-  for (int p = 0; p < N; ++p) x[p] = x0[(size_t)lane * N + p];
-  M4<float> Tg;
-  load_target(tgt, lane, Tg);
-  fout[lane] = lm_lane<float, K>(x, Tg, Tg, G, G, iters);
-#pragma unroll
-  for (int p = 0; p < N; ++p) xout[(size_t)lane * N + p] = x[p];
 }
 
 // the polish: angles reduced mod 4 pi first (u3 is 4 pi-periodic in every
@@ -511,7 +590,7 @@ SLAM_HD void polish_lane_io(const double* __restrict__ x0, const double* __restr
 #if defined(__CUDACC__)
 // ------------------------------------------------------------ launch glue
 
-constexpr int kBlock = 64;  // threads (lanes) per block
+constexpr int kBlock = 64;  // threads (lanes) per block of the polish
 
 // The kernels are launched from a library with its own CUDA runtime, so
 // make the device that owns the tensors current before launching.

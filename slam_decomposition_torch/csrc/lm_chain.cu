@@ -3,36 +3,56 @@
 // Replaces: slam_decomposition_tpu/ops/pallas_chain.py:make_lm_chain
 // (body lm_block :201-268): lm_iters LM iterations per lane on the 32-real
 // phase-aligned residual r = vec(U - e^{i phi} T); J (32 x n) in forward
-// mode, normal equations from the upper triangle, n + 8 CG iterations on
-// J^T J + lam I, accept iff ||r||^2 drops, lam x0.3 / x8 clipped to
-// [1e-14, 1e3]. Returns x and the final ||r||^2 = 8 - 2|tr|.
+// mode, normal equations, n + 8 CG iterations on J^T J + lam I, accept iff
+// ||r||^2 drops, lam x0.3 / x8 clipped to [1e-14, 1e3]. Returns x and the
+// final ||r||^2 = 8 - 2|tr|.
 //
-// Bound on this card: per-lane state, not arithmetic. A lane holds J
-// (32 x n f32, 768 values at n = 24) and A (n x n), far beyond the 255
-// registers of a thread, so J, A and the CG vectors live in local memory
-// (L1 / L2 backed). The arithmetic per iteration (~25k FMAs for J, ~10k
-// for A, ~20k for CG at n = 24) is small against the card's f32 rate.
+// Bound on this card: operations. A lane needs ~97k (k=2) / ~185k (k=3)
+// f32 operations per iteration (utils/mfu.py's model) against ~0.2 KB of
+// device memory read and written per lane for all iterations, so the
+// kernel cannot be bound by device memory. The earlier design, one thread
+// per lane, kept J (32 x n) and A (n x n) in local memory (5.7 / 8.2 KB a
+// thread, more than L1 and L2 hold for the ~34k resident threads) and was
+// bound by that traffic at 12.5% occupancy (255 registers).
 //
-// Design: one thread per lane on a 1-D grid, K as a template parameter.
-// J is computed from prefix / suffix products of the chain
-// (chain_common.cuh jacobian), including d(e^{i phi})/dx, which the TPU
-// kernel got from jax.linearize through rsqrt. The loops over J's columns
-// and over CG stay rolled to keep code size and compile time small.
+// Design (lm_team.cuh): one warp per lane, four lanes per block. J, r, the
+// chain's prefix and suffix products and the CG direction sit in shared
+// memory (~5.6 KB a lane at k=3); each thread builds one column of J,
+// keeps one row of A in registers and owns one row of the CG vectors; dot
+// products are butterfly shuffles. A rejected step reuses J, A and b. The
+// gate products skip sqiSwap's zeros (chain_common.cuh GateNz). 40000 lanes
+// are 10000 blocks, many waves, so the last wave's tail is small.
 
-#include "chain_common.cuh"
+#include "lm_team.cuh"
 
 namespace {
 
+constexpr int kLanes = 4;  // lanes (warps) per block
+constexpr int kThreads = kLanes * slam::kLmTeam;
+// resident blocks per SM the register budget must allow: 5 caps a thread
+// at 96 registers (20 warps per SM) without spills; 6 (80) spills at k=2
+// (tools/tune_kernels.py)
+#ifndef SLAM_LM_MIN_BLOCKS
+#define SLAM_LM_MIN_BLOCKS 5
+#endif
+
 template <int K>
-__global__ void __launch_bounds__(slam::kBlock)
+__global__ void __launch_bounds__(kThreads, SLAM_LM_MIN_BLOCKS)
     lm_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                     const float* __restrict__ gates, int iters, int L,
                     float* __restrict__ xout, float* __restrict__ fout) {
-  __shared__ slam::M4<float> sG[K];
-  slam::load_gates<float, K>(gates, sG, threadIdx.x, blockDim.x);
+  __shared__ slam::GateNz<float> sG[K];
+  __shared__ slam::LmWs<K> ws[kLanes];
+  for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) slam::gate_nz_entry<float>(gates, sG, idx);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < L) slam::lm_lane_io<K>(x0, tgt, sG, iters, lane, xout, fout);
+  const int w = threadIdx.x / slam::kLmTeam;
+  const int lane = blockIdx.x * kLanes + w;
+  slam::DevTeam<slam::kLmTeam, slam::LmThread<K>> tm(threadIdx.x % slam::kLmTeam);
+  slam::lm_team_io<K>(tm, ws[w], sG, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+}
+
+template <int K> cudaError_t occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lm_chain_kernel<K>, kThreads, 0);
 }
 
 }  // namespace
@@ -45,7 +65,7 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
   if (L <= 0) return cudaSuccess;
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + slam::kBlock - 1) / slam::kBlock), block(slam::kBlock);
+  const dim3 grid((L + kLanes - 1) / kLanes), block(kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(x0);
   const float* t = static_cast<const float*>(tgt);
@@ -56,4 +76,13 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
   else if (k == 3) lm_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// resident blocks per SM of the k-instance on the current device, and its
+// threads per block
+extern "C" cudaError_t slam_lm_chain_occupancy(int k, int* blocks, int* threads) {
+  *threads = kThreads;
+  if (k == 2) return occupancy<2>(blocks);
+  if (k == 3) return occupancy<3>(blocks);
+  return cudaErrorInvalidValue;
 }

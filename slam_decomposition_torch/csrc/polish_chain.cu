@@ -60,3 +60,12 @@ extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const 
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
+
+// resident blocks per SM of the k-instance on the current device, and its
+// threads per block
+extern "C" cudaError_t slam_polish_chain_occupancy(int k, int* blocks, int* threads) {
+  *threads = slam::kBlock;
+  if (k == 2) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, polish_chain_kernel<2>, slam::kBlock, 0);
+  if (k == 3) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, polish_chain_kernel<3>, slam::kBlock, 0);
+  return cudaErrorInvalidValue;
+}

@@ -34,6 +34,12 @@ SIGNATURES = {
     "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
+# kernel -> its occupancy query (k, *resident blocks per SM, *threads per block)
+OCCUPANCY = {
+    "adam_chain": "slam_adam_chain_occupancy",
+    "lm_chain": "slam_lm_chain_occupancy",
+    "polish_chain": "slam_polish_chain_occupancy",
+}
 
 
 def _sources():
@@ -51,28 +57,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> pathlib.Path:
+def library_path(flags=None) -> pathlib.Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None else flags).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return build_dir() / f"libslam_chain_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
-    """Compile the kernels if the library for these sources is missing.
+def build(flags=None) -> dict:
+    """Compile the kernels with ``flags`` (default NVCC_FLAGS) if the library
+    for these sources and flags is missing.
 
     Returns {"path", "seconds" (0.0 when reused), "ptxas" (nvcc's -Xptxas -v
     report)}."""
-    out = library_path()
+    flags = NVCC_FLAGS if flags is None else flags
+    out = library_path(flags)
     log = out.with_suffix(".ptxas.txt")
     if out.exists() and log.exists():
         return {"path": out, "seconds": 0.0, "ptxas": log.read_text()}
     out.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    cmd = [_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
@@ -86,10 +94,19 @@ def build() -> dict:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with argtypes declared."""
-    lib = ctypes.CDLL(str(build()["path"]))
+    return open_library(build()["path"])
+
+
+def open_library(path) -> ctypes.CDLL:
+    """A built kernel library with its functions' argtypes declared."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name in OCCUPANCY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
     lib.slam_error_string.argtypes = [ctypes.c_int]
     lib.slam_error_string.restype = ctypes.c_char_p
@@ -98,6 +115,17 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().slam_error_string(err).decode()
+
+
+def occupancy(kernel: str, k: int) -> dict:
+    """{"blocks", "threads", "warps"}: resident blocks per SM of the
+    kernel's k-instance on the current device (the CUDA occupancy
+    calculator), its threads per block, and the resident warps per SM."""
+    blocks, threads = _I(0), _I(0)
+    err = getattr(load(), OCCUPANCY[kernel])(k, ctypes.byref(blocks), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"{OCCUPANCY[kernel]}(k={k}) failed: {error_string(err)} ({err})")
+    return {"blocks": blocks.value, "threads": threads.value, "warps": blocks.value * threads.value // 32}
 
 
 def ptxas_summary(report: str) -> dict:

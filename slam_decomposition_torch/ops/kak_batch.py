@@ -37,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.ops.eig import joint_diag
 from slam_decomposition_torch.ops.weyl import MAGIC, det4
 
@@ -554,15 +555,16 @@ def _three_app_layers(t, l1, r1, l2, r2, C):
     return [(_mm(var_l2, l2), _mm(var_r2, r2)), two[0], two[1], (_mm(l1, two[2][0]), _mm(r1, two[2][1]))]
 
 
-def make_analytic_init(k: int, device="cpu"):
+def make_analytic_init(k: int, device=DEFAULT_DEVICE):
     """Build init(U) -> x: U (B, 4, 4) complex tensor or numpy array, x (B,
     6(k+1)) f64 on ``device``, the analytic warm start in build_ansatz's
     parameter layout for the k-application sqrt(iSwap) template. Targets
     must be in the k-application class (samplers.sqiswap_count_batch);
-    out-of-class rows give an x that fails certification."""
+    out-of-class rows give an x that fails certification. Runs on the card
+    unless ``device`` names another."""
     if k not in (2, 3):
         raise ValueError(f"analytic init supports k in (2, 3), got {k}")
-    C = _Consts(device)
+    C = _Consts(resolve_device(device))
     layers_of = _two_app_layers if k == 2 else _three_app_layers
 
     def init(U) -> torch.Tensor:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.convert import chain_gates_from_numpy
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
@@ -39,10 +40,10 @@ def certificate(f: torch.Tensor) -> torch.Tensor:
 
 
 class ChainSolver:
-    """The solver of one chain depth k on one device."""
+    """The solver of one chain depth k on one device (the card by default)."""
 
-    def __init__(self, chain_gates: np.ndarray, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, chain_gates: np.ndarray, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.gates64 = chain_gates_from_numpy(chain_gates, self.device)
         self.gates32 = self.gates64.to(torch.complex64)
         self.k = self.gates64.shape[0]
@@ -88,9 +89,10 @@ class AnalyticSolver:
     ``solve(tgt)`` takes (B, 4, 4) complex targets of the k-class and
     returns (x (B, n) f64, true f64 square cost (B,)); ``init_only(tgt)``
     is the synthesis alone; ``repolish(x, tgt)`` polishes and certifies an
-    existing iterate (the same polish, the damping restarted)."""
+    existing iterate (the same polish, the damping restarted). It runs on the
+card unless ``device`` names another."""
 
-    def __init__(self, k: int, device="cpu"):
+    def __init__(self, k: int, device=DEFAULT_DEVICE):
         self.k = k
         self.base = ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device)
         self.device = self.base.device

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import device_of
 from slam_decomposition_torch.ops.weyl import c1c2c3
 
 
@@ -40,16 +41,15 @@ COUNT_TOL = 1e-8  # region-test tolerance in chamber units (JAX samplers.py:331)
 def sqiswap_count_batch(Us, device=None) -> np.ndarray:
     """Analytic sqiSwap application counts (0/1/2/3) for a batch of U(4)s
     (JAX samplers.py:299-336): one batched f64 c1c2c3 on ``device`` (default:
-    the tensor's device, or the CPU for numpy input), then the Huang et al.
+    the tensor's device, or the card for numpy input), then the Huang et al.
     (arXiv:2105.06074) region test |z| <= x - y in the positive canonical
     cell, after the CNOT-mirror fold c1 > 1/2 -> 1 - c1. Equals the count
     ``transpile.kak.sqiswap_decompose`` emits."""
+    device = device_of(Us, device)
     U = torch.as_tensor(Us)
     single = U.ndim == 2
     if single:
         U = U[None]
-    if device is None:
-        device = U.device
     c = c1c2c3(U.to(device=device, dtype=torch.complex128)).cpu().numpy()
     fold = c[:, 0] > 0.5
     x = np.where(fold, 1.0 - c[:, 0], c[:, 0])

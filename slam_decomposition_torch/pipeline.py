@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
@@ -85,12 +86,13 @@ def decompose_haar(
     restarts: int = 4,
     thresh: float = 1e-10,
     seed: int = 456,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> HaarResult:
     """Decompose haar_sample(B, seed) into the sqiSwap basis, certified at
     square cost <= thresh. Before the clock starts, every solver shape runs
-    once on a disjoint target set."""
-    device = torch.device(device)
+    once on a disjoint target set. Runs on the card unless ``device`` names
+    another."""
+    device = resolve_device(device)
     coverage = load_coverage(gates.cg_sqiswap())
     solvers = {
         k: make_solver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)

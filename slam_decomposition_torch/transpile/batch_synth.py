@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.opt.gauss_newton import make_analytic_solver
 from slam_decomposition_torch.opt.samplers import sqiswap_count_batch
 from slam_decomposition_torch.transpile.kak import SQISWAP_M, sqiswap_decompose
@@ -143,7 +144,7 @@ def sqiswap_decompose_batch(
     Us: np.ndarray,
     atol: float = 1e-10,
     stats: Optional[dict] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
     times: Optional[dict] = None,
 ) -> List[Tuple[list, int]]:
     """Batched `sqiswap_decompose` over a (B, 4, 4) block array.
@@ -160,9 +161,10 @@ def sqiswap_decompose_batch(
     "f64_rescue" key counted its second (CPU f64) tier, which the port does
     not have. ``times`` (if given) accumulates seconds per stage: "count",
     "init", "polish" (polish and the device certificate) and "emit" (host
-    certification, step emission and every host-routine block).
+    certification, step emission and every host-routine block). Runs on the
+    card unless ``device`` names another.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     clock = _StageClock(device, times)
     Us = np.asarray(Us, dtype=complex)
     B = len(Us)

@@ -17,6 +17,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.ops.weyl import c1c2c3
 from slam_decomposition_torch.transpile.ir import Circuit, Op, embed
 
@@ -109,7 +110,7 @@ def consolidate_2q_blocks(circ: Circuit) -> List[Block]:
     return blocks
 
 
-def block_coordinate_counts(circ: Circuit, decimals: int = 4, device="cpu") -> dict:
+def block_coordinate_counts(circ: Circuit, decimals: int = 4, device=DEFAULT_DEVICE) -> dict:
     """Histogram of consolidated 2Q-block Weyl coordinates.
 
     The reference's "shot chart" study (scripts/shot_chart.ipynb): collect
@@ -118,8 +119,10 @@ def block_coordinate_counts(circ: Circuit, decimals: int = 4, device="cpu") -> d
     e.g. the SWAP-class vs CNOT-class ratio that motivates speed-limit
     winner weighting. Coordinates are computed in ONE batched f64 c1c2c3 on
     ``device`` instead of the notebook's per-block weylchamber.c1c2c3 loop,
-    and keyed rounded to ``decimals``.
+    and keyed rounded to ``decimals``. ``device`` is the card unless the
+    caller names another.
     """
+    device = resolve_device(device)
     blocks = consolidate_2q_blocks(circ)
     if not blocks:
         return {}

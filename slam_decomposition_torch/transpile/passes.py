@@ -14,8 +14,8 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
+from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 from slam_decomposition_torch.transpile.consolidate import collect_2q_blocks, consolidate_2q_blocks
 from slam_decomposition_torch.transpile.cx_decompose import cx_decompose_to_circuit
@@ -120,7 +120,7 @@ def pass_manager_basic(
     gate: str = "sqiswap",
     duration_1q: float = 0.0,
     batched: Optional[bool] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
     stats: Optional[dict] = None,
 ) -> Tuple[Circuit, Dict]:
     """Analytic decomposition baseline (pass_manager_basic,
@@ -132,10 +132,11 @@ def pass_manager_basic(
     (transpile/batch_synth.py). None = batch when the gate is sqiSwap, the
     circuit has at least BATCH_MIN_BLOCKS blocks and ``device`` is CUDA.
     ``stats`` (if given) receives the batched call's block counts and,
-    under "results", its (steps, n) per block."""
+    under "results", its (steps, n) per block. ``device`` is the card unless
+    the caller names another."""
     if gate not in ("sqiswap", "cx"):
         raise ValueError(gate)
-    device = torch.device(device)
+    device = resolve_device(device)
     circ = unroll_3q_or_more(circ)
     blocks = consolidate_2q_blocks(circ)
     if batched is None:

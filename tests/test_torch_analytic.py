@@ -79,7 +79,7 @@ def test_sqiswap_count_batch_matches_jax(batch):
     }[batch]()
     got = sqiswap_count_batch(U, device="cpu")
     assert np.array_equal(got, jsamplers.sqiswap_count_batch(U))
-    assert sqiswap_count_batch(U[0]) == got[0]
+    assert sqiswap_count_batch(U[0], device="cpu") == got[0]
 
 
 def test_analytic_init_k2_matches_jax():

@@ -1,0 +1,56 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: called without ``device`` where torch sees no CUDA device, each one
+raises instead of returning a CPU result. Each test decides inside itself
+whether there is a card, so every pytest worker collects the same tests."""
+
+import numpy as np
+import pytest
+import torch
+
+from slam_decomposition_torch.config import resolve_device
+from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.ops.kak_batch import make_analytic_init
+from slam_decomposition_torch.opt.gauss_newton import make_analytic_solver, make_solver  # = ChainSolver, AnalyticSolver
+from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+from slam_decomposition_torch.pipeline import decompose_haar
+from slam_decomposition_torch.transpile import library
+from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
+from slam_decomposition_torch.transpile.consolidate import block_coordinate_counts
+from slam_decomposition_torch.transpile.passes import pass_manager_basic
+
+U = haar_sample(4, seed=3)
+CHAIN = build_ansatz(cycle_gates([gates.SQISWAP], 2)).chain_gates
+ENTRY_POINTS = {
+    "decompose_haar": lambda: decompose_haar(B=8, chunk=8, restarts=1),
+    "make_solver": lambda: make_solver(CHAIN),
+    "make_analytic_solver": lambda: make_analytic_solver(2),
+    "make_analytic_init": lambda: make_analytic_init(2),
+    "sqiswap_decompose_batch": lambda: sqiswap_decompose_batch(U),
+    "pass_manager_basic": lambda: pass_manager_basic(library.qft(3), "sqiswap", 0.25, batched=False),
+    "block_coordinate_counts": lambda: block_coordinate_counts(library.qft(3)),
+    "sqiswap_count_batch(numpy)": lambda: sqiswap_count_batch(U),
+    "monodromy_ks_batch(numpy)": lambda: monodromy_ks_batch(load_coverage(gates.cg_sqiswap()), U),
+}
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(no_card, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_tensor_input_keeps_its_device(no_card):
+    # device=None means the tensor's own device: a CPU tensor stays on the CPU
+    T = torch.as_tensor(U)
+    assert np.array_equal(sqiswap_count_batch(T), sqiswap_count_batch(U, device="cpu"))
+    cov = load_coverage(gates.cg_sqiswap())
+    assert np.array_equal(monodromy_ks_batch(cov, T), monodromy_ks_batch(cov, U, device="cpu"))
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -4,9 +4,10 @@ plain PyTorch versions.
 The kernels' per-lane bodies live in csrc/chain_common.cuh and compile as
 host code too; csrc/host_lanes.cpp loops them over lanes with a host C++
 compiler. This checks the hand-derived gradient and Jacobian (including the
-phase-factor derivative) and the LM / CG schedule on the CPU. The launch
-glue and the device build are covered on the card (test_torch_kernels.py,
-chip_smoke.py)."""
+phase-factor derivative) and the LM / CG schedule on the CPU. The Adam and
+LM teams run block by block as the kernels cut the lanes; L = 37 leaves
+the last block partly filled. The launch glue and the device build are
+covered on the card (test_torch_kernels.py, chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -23,7 +24,7 @@ from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
 
-L = 48
+LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM lanes a block)
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +52,7 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _inputs(k, seed):
+def _inputs(k, seed, L):
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     g64 = torch.as_tensor(a.chain_gates)
     T = torch.as_tensor(haar_sample(L, seed=seed))
@@ -65,31 +66,34 @@ def _adam(lib, x0, T32, g32, sched, k):
     return out
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_adam_lane_matches_plain(lanes, k):
-    _, g32, _, T32, x0 = _inputs(k, 3)
+def test_adam_lane_matches_plain(lanes, k, L):
+    _, g32, _, T32, x0 = _inputs(k, 3, L)
     sched = ck.adam_schedule(100)[:25].contiguous()
     got = _adam(lanes, x0, T32, g32, sched, k)
     # f32 association order only; 25 steps (the JAX kernel test's bound)
     np.testing.assert_allclose(got.numpy(), ck.adam_chain_ref(x0, T32, g32, sched).numpy(), atol=5e-5)
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_lm_lane_matches_plain(lanes, k):
-    _, g32, _, T32, x0 = _inputs(k, 5)
+def test_lm_lane_matches_plain(lanes, k, L):
+    _, g32, _, T32, x0 = _inputs(k, 5, L)
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
     xl = torch.empty_like(xa)
     f = torch.empty(L, dtype=torch.float32)
     lanes.lm_host(_p(xa), _p(T32), _p(g32), 8, k, L, _p(xl), _p(f))
     _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
     # accept/reject at the f32 floor may differ: rtol 1e-3 / atol 1e-5 on
-    # >= 99% of lanes (all 48 here)
+    # >= 99% of lanes (all of them here)
     assert np.isclose(f.numpy(), f_ref.numpy(), rtol=1e-3, atol=1e-5).mean() >= 0.99
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_polish_lane_matches_plain(lanes, k):
-    g64, g32, T, T32, x0 = _inputs(k, 7)
+def test_polish_lane_matches_plain(lanes, k, L):
+    g64, g32, T, T32, x0 = _inputs(k, 7, L)
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
     xl, _ = ck.lm_chain_ref(xa, T32, g32, 8)
     x64 = xl.double().contiguous()

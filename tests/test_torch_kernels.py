@@ -20,7 +20,7 @@ from slam_decomposition_torch.transpile import kak
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 
 pytestmark = pytest.mark.cuda
-L = 512
+LANES = [512, 509]  # 509: a partial last block (32 Adam lanes, 4 LM lanes a block)
 
 
 @pytest.fixture
@@ -30,7 +30,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(k, dev, seed=0):
+def _inputs(k, dev, seed=0, L=512):
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     g64 = torch.as_tensor(a.chain_gates).to(dev)
     T = torch.as_tensor(haar_sample(L, seed=seed)).to(dev)
@@ -39,9 +39,10 @@ def _inputs(k, dev, seed=0):
     return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_adam_kernel_matches_plain(dev, k):
-    _, g32, _, T32, x0 = _inputs(k, dev)
+def test_adam_kernel_matches_plain(dev, k, L):
+    _, g32, _, T32, x0 = _inputs(k, dev, L=L)
     sched = ck.adam_schedule(100, device=dev)[:25].contiguous()
     before = ck.adam_chain.launches
     got = ck.adam_chain(x0, T32, g32, sched)
@@ -52,9 +53,10 @@ def test_adam_kernel_matches_plain(dev, k):
     assert (d <= 5e-5).float().mean().item() >= 0.99
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_lm_kernel_matches_plain(dev, k):
-    _, g32, _, T32, x0 = _inputs(k, dev, seed=1)
+def test_lm_kernel_matches_plain(dev, k, L):
+    _, g32, _, T32, x0 = _inputs(k, dev, seed=1, L=L)
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
     before = ck.lm_chain.launches
     _, f = ck.lm_chain(xa, T32, g32, 8)
@@ -63,9 +65,10 @@ def test_lm_kernel_matches_plain(dev, k):
     assert torch.isclose(f, f_ref, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
 
 
+@pytest.mark.parametrize("L", LANES)
 @pytest.mark.parametrize("k", [2, 3])
-def test_polish_kernel_matches_plain(dev, k):
-    g64, g32, T, T32, x0 = _inputs(k, dev, seed=2)
+def test_polish_kernel_matches_plain(dev, k, L):
+    g64, g32, T, T32, x0 = _inputs(k, dev, seed=2, L=L)
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
     xl, _ = ck.lm_chain(xa, T32, g32, 8)
     x64 = xl.double().contiguous()
@@ -83,7 +86,7 @@ def test_polish_kernel_matches_plain(dev, k):
 def test_kernels_refuse_uninstantiated_depth(dev):
     g64, g32, T, T32, _ = _inputs(2, dev)
     g4 = torch.cat([g32, g32]).contiguous()  # k = 4
-    x = torch.zeros((L, 30), dtype=torch.float32, device=dev)
+    x = torch.zeros((T32.shape[0], 30), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         ck.lm_chain(x, T32, g4, 1)
 

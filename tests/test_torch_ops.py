@@ -111,7 +111,7 @@ def test_ks_match_jax(coverages):
     jc, tc = coverages
     T = jsamplers.haar_sample(2048, seed=456)
     want = jcov.monodromy_ks_batch(jc, T)
-    got = tcov.monodromy_ks_batch(tc, T)
+    got = tcov.monodromy_ks_batch(tc, T, device="cpu")
     assert np.array_equal(got, want)
 
 
@@ -121,6 +121,6 @@ def test_ks_of_degenerate_classes(coverages):
         [np.eye(4, dtype=complex), jgates.riswap(0.5).to_numpy(), jgates.CNOT.to_numpy(),
          jgates.SWAP.to_numpy(), jgates.berkeley().to_numpy()]
     )
-    got = tcov.monodromy_ks_batch(tc, zoo)
+    got = tcov.monodromy_ks_batch(tc, zoo, device="cpu")
     assert np.array_equal(got, jcov.monodromy_ks_batch(jc, zoo))
     assert got[0] == 0 and got[1] == 1 and got[3] == 3

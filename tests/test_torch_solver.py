@@ -31,7 +31,7 @@ def test_solve_certifies_the_same_targets_as_jax(k):
     x0 = np.random.default_rng(k).uniform(0, 2 * np.pi, (B, R, ja.n_params))
     js = jax.jit(jmake_solver(ja.eval_fn, ja.n_params, chain_gates=ja.chain_gates, adam_backend="xla"))
     _, lj = js(jnp.asarray(x0), jcplx.from_numpy(T))
-    solver = make_solver(ja.chain_gates)
+    solver = make_solver(ja.chain_gates, device="cpu")
     xt, lt = solver.solve(torch.as_tensor(x0), torch.as_tensor(T))
     lj, lt = np.asarray(lj), lt.numpy()
     flips = int(((lj <= 1e-10) != (lt <= 1e-10)).sum())

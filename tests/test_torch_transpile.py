@@ -311,7 +311,7 @@ def test_pass_manager_basic_matches_jax(name, gate):
         assert stats["fallback"] == 0 and stats["device"] + stats["trivial"] == len(
             tconsolidate.consolidate_2q_blocks(tc)
         )
-        h_out, h_m = tpasses.pass_manager_basic(tc, gate=gate, duration_1q=0.25, batched=False)
+        h_out, h_m = tpasses.pass_manager_basic(tc, gate=gate, duration_1q=0.25, batched=False, device="cpu")
         assert h_m == j_m
 
 
