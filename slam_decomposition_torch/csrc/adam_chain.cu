@@ -31,13 +31,10 @@ constexpr int kLanes = 32;  // lanes per block
 constexpr int kThreads = kLanes * slam::kAdamTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
 // at 96 registers (20 warps per SM) without spills; 6 (80) spills
-// (tools/tune_kernels.py)
-#ifndef SLAM_ADAM_MIN_BLOCKS
-#define SLAM_ADAM_MIN_BLOCKS 5
-#endif
+constexpr int kMinBlocks = 5;
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, SLAM_ADAM_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     adam_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                       const float* __restrict__ gates, const float* __restrict__ sched,
                       int iters, int L, float* __restrict__ xout) {

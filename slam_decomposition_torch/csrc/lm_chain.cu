@@ -7,9 +7,11 @@
 // ||r||^2 drops, lam x0.3 / x8 clipped to [1e-14, 1e3]. Returns x and the
 // final ||r||^2 = 8 - 2|tr|.
 //
-// Bound on this card: operations. A lane needs ~97k (k=2) / ~185k (k=3)
-// f32 operations per iteration (utils/mfu.py's model) against ~0.2 KB of
-// device memory read and written per lane for all iterations, so the
+// Bound on this card: operations. A lane needs ~57k (k=2) / ~96k (k=3)
+// f32 operations per iteration that rebuilds J and ~22k / ~44k per
+// iteration that keeps it (utils/mfu.py's launch model: J from prefix and
+// suffix products, A's upper triangle, CG, the trial residual) against
+// ~0.2 KB of device memory read and written per lane for all iterations, so the
 // kernel cannot be bound by device memory. The earlier design, one thread
 // per lane, kept J (32 x n) and A (n x n) in local memory (5.7 / 8.2 KB a
 // thread, more than L1 and L2 hold for the ~34k resident threads) and was
@@ -30,14 +32,11 @@ namespace {
 constexpr int kLanes = 4;  // lanes (warps) per block
 constexpr int kThreads = kLanes * slam::kLmTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
-// at 96 registers (20 warps per SM) without spills; 6 (80) spills at k=2
-// (tools/tune_kernels.py)
-#ifndef SLAM_LM_MIN_BLOCKS
-#define SLAM_LM_MIN_BLOCKS 5
-#endif
+// at 96 registers (20 warps per SM) without spills; 6 (80) spills
+constexpr int kMinBlocks = 5;
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, SLAM_LM_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     lm_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                     const float* __restrict__ gates, int iters, int L,
                     float* __restrict__ xout, float* __restrict__ fout) {

@@ -57,30 +57,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(flags=None) -> pathlib.Path:
+def library_path() -> pathlib.Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS if flags is None else flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return build_dir() / f"libslam_chain_{h.hexdigest()[:16]}.so"
 
 
-def build(flags=None) -> dict:
-    """Compile the kernels with ``flags`` (default NVCC_FLAGS) if the library
-    for these sources and flags is missing.
+def build() -> dict:
+    """Compile the kernels if the library for these sources is missing.
 
     Returns {"path", "seconds" (0.0 when reused), "ptxas" (nvcc's -Xptxas -v
     report)}."""
-    flags = NVCC_FLAGS if flags is None else flags
-    out = library_path(flags)
+    out = library_path()
     log = out.with_suffix(".ptxas.txt")
     if out.exists() and log.exists():
         return {"path": out, "seconds": 0.0, "ptxas": log.read_text()}
     out.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
@@ -94,12 +92,7 @@ def build(flags=None) -> dict:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use, with argtypes declared."""
-    return open_library(build()["path"])
-
-
-def open_library(path) -> ctypes.CDLL:
-    """A built kernel library with its functions' argtypes declared."""
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(build()["path"]))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -1,8 +1,9 @@
 """FLOP model of the three chain kernels, and their bounds on an H100.
 
-The per-step counts are the JAX package's own (its utils/mfu.py), copied so
-that both packages reckon the same work; only the peaks differ. Counts are
-per lane. Conventions: a real multiply or add is 1 flop, a transcendental
+The per-step counts below are the JAX package's own (its utils/mfu.py),
+copied so that both packages reckon the same work; only the peaks differ.
+The LM's launch bounds take a smaller count of J and A (see below).
+Counts are per lane. Conventions: a real multiply or add is 1 flop, a transcendental
 (sin, cos, rsqrt) 8, a complex multiply 6.
 
 * Forward chain F (``chain_flops``): per layer two u3 (8 transcendentals
@@ -14,6 +15,17 @@ per lane. Conventions: a real multiply or add is 1 flop, a transcendental
 * LM iteration (``lm_iter_flops``): J by forward mode ((1 + 1.5n) F),
   normal equations (64n^2 + 64n), CG ((n + 8)(2n^2 + 6n)) and the trial
   residual (F).
+
+The launch bounds charge the LM and the polish with less: the work their
+function needs, not the JAX package's way of computing it. J comes from
+the prefix products P_i (those of the forward chain, already charged in
+F) and the suffix products S_i: one suffix chain (``suffix_flops``: per
+gate, two u3 from the forward chain's sines and cosines, the layer applied
+to 4 rows and the sparse gate product) and, per column,
+dU/dx_p = S_i (dL_i/dx_p) P_i with the phase factor's derivative
+(``JAC_COLUMN_FLOPS``). A = J^T J is symmetric: its upper triangle costs
+32n(n + 1), b = -J^T r 64n (``lm_rebuild_flops``). CG and the residuals
+are as above.
 
 The bound of a launch is the least time the card could take for its work:
 the larger of its flops over the peak rate of their type and the bytes it
@@ -70,6 +82,28 @@ def lm_iter_flops(k: int, df64_residual: bool = False) -> float:
     return rebuild + cg + (10.0 if df64_residual else 1.0) * F
 
 
+# one column of J: the two factors of dL_i/dx_p (u3 and its derivative from
+# sines and cosines, ~10 each); for each of P_i's 4 columns the layer's
+# Kronecker factors applied to it (16 complex multiplies, 8 adds), S_i
+# times the result (16, 12) and its part of tr(T^dag dU) (4, 4); the phase
+# term (6 real, then 16 complex multiplies and 32 real subtractions)
+JAC_COLUMN_FLOPS = 2 * 10 + 4 * ((16 * 6 + 8 * 2) + (16 * 6 + 12 * 2) + (4 * 6 + 4 * 2)) + 6 + 16 * 6 + 32
+
+
+def suffix_flops(k: int) -> float:
+    """The suffix products S_k..S_1 of one chain: per gate two u3 (~10
+    each, no transcendentals), the layer applied to the 4 rows (16 complex
+    multiplies and 8 adds each) and the sparse gate product (~112)."""
+    return k * (2 * 10 + 4 * (16 * 6 + 8 * 2) + 112)
+
+
+def lm_rebuild_flops(k: int) -> float:
+    """J, A and b of one LM iteration as the function needs them: one suffix
+    chain, n columns of J, A's upper triangle and b."""
+    n = 6 * (k + 1)
+    return suffix_flops(k) + n * JAC_COLUMN_FLOPS + 32 * n * (n + 1) + 64 * n
+
+
 def solve_flops_per_target(
     k: int, restarts: int, adam_iters: int = 100, lm32_iters: int = 8,
     polish_iters: int = 6, cert: str = "df64",
@@ -107,8 +141,9 @@ def adam_launch(k: int, lanes: int, iters: int) -> dict:
 def lm_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dict:
     """One lm_chain launch: the initial residual and ``iters`` iterations per
     lane, of which ``fresh`` per lane (on average; default all) rebuild J, A
-    and b. Reads x0 and T, writes x and ||r||^2."""
-    rebuild, cg, F = _lm_parts(k)
+    and b (``lm_rebuild_flops``). Reads x0 and T, writes x and ||r||^2."""
+    _, cg, F = _lm_parts(k)
+    rebuild = lm_rebuild_flops(k)
     fresh = iters if fresh is None else fresh
     n = 6 * (k + 1)
     nbytes = lanes * (2 * n + 32 + 1) * 4 + k * 128
@@ -118,7 +153,8 @@ def lm_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dic
 def polish_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dict:
     """One polish_chain launch: as lm_launch, with the initial and trial
     residuals in f64 at the f64 rate and all data in f64."""
-    rebuild, cg, F = _lm_parts(k)
+    _, cg, F = _lm_parts(k)
+    rebuild = lm_rebuild_flops(k)
     fresh = iters if fresh is None else fresh
     n = 6 * (k + 1)
     nbytes = lanes * (2 * n + 32 + 1) * 8 + k * 256
