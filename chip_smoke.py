@@ -7,18 +7,23 @@ Phases, one line each (more for the build report):
   2. build: compile the CUDA kernels from slam_decomposition_torch/csrc with
      nvcc, print the build seconds, ptxas registers / spills and the
      resident blocks and warps per SM (CUDA occupancy calculator) of each
-     kernel instance;
+     kernel instance; every instance must build without spills or a stack
+     frame beyond a few bytes;
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
      polish), at k=2 and k=3, with times of both after one warm call, and
      each instance's FLOPs, bound and share of the bound from the port's
      flop model (slam_decomposition_torch/utils/mfu.py) at those shapes;
+     the Adam instance that also returns the square cost, against the plain
+     square cost of its x;
   4. main path: slam_decomposition_torch.pipeline.decompose_haar at
      B=100000, chunk=10000, restarts=4, thresh=1e-10, seed=456, which must
      give the k histogram {2: 79029, 3: 20971}, certify every target at
      square cost <= 1e-10, and launch every kernel once per chunk it
-     solves (warm-up, k buckets and rescue rounds);
+     solves (warm-up, k buckets and rescue rounds); then, outside the
+     counted run, one chunk of its targets per k through
+     ChainSolver(top_m=2) beside the flat solve;
   5. transpile path, counted like the main path:
      (a) QFT-64 (2048 blocks): the sqiSwap count histogram, then
      slam_decomposition_torch.transpile.passes.pass_manager_basic(qft(64),
@@ -63,6 +68,9 @@ SOURCES = {
 # set from are in PERF.md)
 ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
 ADAM_COST_FRAC_TOL = 0.01
+ADAM_WITH_COST_ATOL = 1e-5  # the kernel's f32 cost against the plain f32 cost of its x
+TOP_M, TOP_M_CERT_FRAC = 2, 0.9  # top_m=2 must certify >= 0.9 of what the flat solve does
+STACK_MAX = 80  # bytes of stack frame an instance may have: sincosf's / sincos's range-reduction scratch (32 / 72 B)
 LM_RTOL, LM_ATOL, LM_LANE_FRAC = 1e-3, 1e-5, 0.99
 POLISH_VERDICT_FRAC, POLISH_COST_ATOL, CERT_ATOL = 0.999, 1e-11, 1e-13
 # transpile phase. QFT-64's reference values are the JAX package's own
@@ -119,18 +127,22 @@ def phase_build():
     print(f"[build] {info['seconds']:.1f} s nvcc -> {info['path'].name}")
     regs = _build.ptxas_summary(info["ptxas"])
     for entry, r in sorted(regs.items()):
-        m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", entry)
-        name = f"{m.group(1)}<{m.group(2)}>" if m else entry
+        m = re.search(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb(\d)E)?", entry)
+        name = f"{m.group(1)}<{m.group(2)}{', cost' if m.group(3) == '1' else ''}>" if m else entry
         print(f"[build] ptxas {name}: {r.get('registers')} registers, "
               f"{r.get('stack_frame')} B stack, {r.get('spill_stores')} B spill stores, "
               f"{r.get('spill_loads')} B spill loads")
-    check(len(regs) >= 6, f"expected 6 kernel instances in the ptxas report, got {len(regs)}")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and r.get("stack_frame", 1 << 30) <= STACK_MAX,
+              f"{name} spills or keeps arrays in local memory")
+    # Adam with and without the cost, the LM and the polish, each at k = 2, 3
+    check(len(regs) == 8, f"expected 8 kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
     for name in REPLACES:
         for k in (2, 3):
             o = _build.occupancy(name, k)
             print(f"[build] occupancy {name}<{k}>: {o['blocks']} resident blocks x {o['threads']} threads = "
                   f"{o['warps']} warps per SM")
+            check(o["warps"] >= 12, f"{name}<{k}> keeps only {o['warps']} warps per SM resident")
     return regs
 
 
@@ -193,6 +205,12 @@ def phase_parity():
         st["max_abs_err"] = max(st["max_abs_err"], d.max().item())
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
         st[f"bound_k{k}"] = bound_line("adam_chain", k, mfu.adam_launch(k, x0.shape[0], sched.shape[0]), ms)
+        # the instance that also returns the square cost at its x
+        (xc, cost), ms_c = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched, with_cost=True))
+        cerr = (cost - ck.square_cost(xc, lanes_t, g32)).abs().max().item()
+        print(f"[parity] adam_chain with_cost k={k}: max|dx| to the default instance {(xc - xa).abs().max().item():.3e}, "
+              f"max|cost - plain cost of its x| {cerr:.3e} (need <= {ADAM_WITH_COST_ATOL:g}); kernel {ms_c:.3f} ms")
+        check(cerr <= ADAM_WITH_COST_ATOL, f"adam_chain with_cost k={k}: cost disagrees with the plain cost of its x")
 
         # LM: compare ||r||^2 per lane; accept/reject decisions near the f32
         # floor may differ, hence the lane fraction (the JAX kernel test's bound)
@@ -293,7 +311,37 @@ def phase_main_path(card):
     check(r.n_certified == B, f"certified {r.n_certified} of {B}")
     check(worst <= THRESH, f"worst loss {worst} > {THRESH}")
     check(all(v == want for v in counts.values()), f"launches {counts}, expected {want} of each kernel")
-    return counts, r.n_certified / t["total"]
+    return counts, r.n_certified / t["total"], r.ks
+
+
+def phase_top_m(card, ks):
+    """One chunk of the main path's targets per k through ChainSolver(top_m=
+    TOP_M) beside the flat solve from the same x0s (outside the counted
+    runs): the cut halves the LM's lanes and must keep certifying."""
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import ChainSolver
+    from slam_decomposition_torch.opt.samplers import haar_sample
+
+    dev = torch.device("cuda")
+    U = haar_sample(B, seed=SEED)
+    for k in (2, 3):
+        cg = build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates
+        T = torch.as_tensor(U[ks == k][:CHUNK]).to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + k)
+        x0 = torch.rand((len(T), RESTARTS, 6 * (k + 1)), generator=gen, device=dev, dtype=torch.float64) * (2 * math.pi)
+        n_cert, ms = {}, {}
+        for name, solver in (("flat", ChainSolver(cg, dev)), ("top_m", ChainSolver(cg, dev, top_m=TOP_M))):
+            ck.reset_launch_counts()
+            (_, loss), ms[name] = timed_ms(lambda: solver.solve(x0, T))
+            n_cert[name] = int((loss <= THRESH).sum())
+            check(all(v == 2 for v in ck.launch_counts().values()), f"top_m check k={k} {name}: launches {ck.launch_counts()}")
+        print(f"[top_m] {card}: k={k} {len(T)} targets x {RESTARTS} restarts: top_m={TOP_M} certifies {n_cert['top_m']} "
+              f"in {ms['top_m']:.3f} ms, flat solve {n_cert['flat']} in {ms['flat']:.3f} ms "
+              f"(need >= {TOP_M_CERT_FRAC} of the flat solve's)")
+        check(n_cert["top_m"] >= TOP_M_CERT_FRAC * n_cert["flat"], f"top_m={TOP_M} k={k} certifies too few")
 
 
 def contract(results, U):
@@ -428,7 +476,8 @@ def main() -> int:
         card = phase_device()
         phase_build()
         stats = phase_parity()
-        counts, main_rate = phase_main_path(card)
+        counts, main_rate, ks = phase_main_path(card)
+        phase_top_m(card, ks)
         t_counts, t_polish_err = phase_transpile(card, main_rate)
         counts = {name: counts[name] + t_counts[name] for name in counts}
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)

@@ -21,7 +21,10 @@
 // and 6 floats per layer (the gradient) per step by shuffles. The gate
 // products skip sqiSwap's zeros (chain_common.cuh GateNz); the [1/bias1,
 // 1/bias2, lr] schedule is read from a small device array like the TPU
-// kernel's SMEM.
+// kernel's SMEM. A second instance (Cost) ends with one more forward chain
+// and writes the lane's square cost at the final x (the TPU kernel's
+// with_cost, pallas_chain.py:707-719, :744-745); the default instance does
+// not pay for it.
 
 #include "adam_team.cuh"
 
@@ -30,14 +33,15 @@ namespace {
 constexpr int kLanes = 32;  // lanes per block
 constexpr int kThreads = kLanes * slam::kAdamTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
-// at 96 registers (20 warps per SM) without spills; 6 (80) spills
-constexpr int kMinBlocks = 5;
+// at 96 registers (20 warps per SM) without spills; 6 (80) spills. The
+// instance with the cost spills at 96 (8 / 4 B) and takes 4 (128).
+constexpr int kMinBlocks = 5, kMinBlocksCost = 4;
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int K, bool Cost>
+__global__ void __launch_bounds__(kThreads, Cost ? kMinBlocksCost : kMinBlocks)
     adam_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                       const float* __restrict__ gates, const float* __restrict__ sched,
-                      int iters, int L, float* __restrict__ xout) {
+                      int iters, int L, float* __restrict__ xout, float* __restrict__ fout) {
   __shared__ slam::GateNz<float> sG[K];
   __shared__ slam::AdamWs<K> ws[kLanes];
   for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) slam::gate_nz_entry<float>(gates, sG, idx);
@@ -47,21 +51,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // a team past the last lane repeats lane L - 1 without storing: every
   // thread of the warp takes part in the shuffles
   slam::DevTeam<slam::kAdamTeam, slam::AdamThread<K>> tm(threadIdx.x % slam::kAdamTeam);
-  slam::adam_team_io<K>(tm, ws[w], sG, x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout);
+  slam::adam_team_io<K, Cost>(tm, ws[w], sG, x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout,
+                               fout);
 }
 
 template <int K> cudaError_t occupancy(int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, adam_chain_kernel<K>, kThreads, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, adam_chain_kernel<K, false>, kThreads, 0);
 }
 
 }  // namespace
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64,
-// sched (iters, 3) f32 -> xout (L, 6(k+1)) f32. Launches on `stream` and
-// returns the launch's error code; k must be 2 or 3.
+// sched (iters, 3) f32 -> xout (L, 6(k+1)) f32 and, unless fout is null,
+// fout (L,) f32, the square cost at xout. Launches on `stream` and returns
+// the launch's error code; k must be 2 or 3.
 extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const void* gates,
                                        const void* sched, int iters, int k, int L,
-                                       void* xout, void* stream) {
+                                       void* xout, void* fout, void* stream) {
   if (L <= 0) return cudaSuccess;
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
@@ -72,14 +78,17 @@ extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const vo
   const float* g = static_cast<const float*>(gates);
   const float* sc = static_cast<const float*>(sched);
   float* o = static_cast<float*>(xout);
-  if (k == 2) adam_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o);
-  else if (k == 3) adam_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o);
+  float* f = static_cast<float*>(fout);
+  if (k == 2 && f) adam_chain_kernel<2, true><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+  else if (k == 2) adam_chain_kernel<2, false><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+  else if (k == 3 && f) adam_chain_kernel<3, true><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+  else if (k == 3) adam_chain_kernel<3, false><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// resident blocks per SM of the k-instance on the current device, and its
-// threads per block
+// resident blocks per SM of the default k-instance on the current device,
+// and its threads per block
 extern "C" cudaError_t slam_adam_chain_occupancy(int k, int* blocks, int* threads) {
   *threads = kThreads;
   if (k == 2) return occupancy<2>(blocks);

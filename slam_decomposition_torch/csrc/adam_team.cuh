@@ -46,12 +46,54 @@ template <int K> struct AdamThread {
   float part[6];          // operands of the team's sums
 };
 
+// The forward chain at ws.x: its sines and cosines, then thread t column t
+// of P_0..P_K and of U and its share of the trace; leaves t = tr(T^dag U)
+// in every thread's th.t
+template <int K, class Team>
+SLAM_HD void adam_forward(Team& tm, AdamWs<K>& ws, const GateNz<float>* G) {
+  constexpr int NT = 2 * (K + 1);
+  SLAM_EACH(tm, t) {
+    for (int s = t; s < NT; s += kAdamTeam) ws.trig[s] = u3_trig(ws.x + 3 * s);
+  }
+  tm.sync();
+  SLAM_EACH(tm, t) {
+    AdamThread<K>& th = tm.th(t);
+    C<float> v[4], w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.f : 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i <= K; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ws.P[i][q][t] = v[q];
+      M2<float> A, B;
+      u3_build(ws.trig[2 * i], A, (M2<float>*)nullptr);
+      u3_build(ws.trig[2 * i + 1], B, (M2<float>*)nullptr);
+      kron_col(A, B, v, w);
+      if (i < K) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ws.y[t][q] = w[q];
+        gate_col(G[i], ws.y[t], v);
+      }
+    }
+    C<float> tr = cjmul(ws.T[t], w[0]);
+#pragma unroll
+    for (int q = 1; q < 4; ++q) tr = cadd(tr, cjmul(ws.T[4 * q + t], w[q]));
+    th.part[0] = tr.re;
+    th.part[1] = tr.im;
+  }
+  tm.sum(&AdamThread<K>::part);
+  SLAM_EACH(tm, t) {
+    AdamThread<K>& th = tm.th(t);
+    th.t = cmk(th.part[0], th.part[1]);
+  }
+}
+
 // iters Adam steps on the lane whose x0 and target are in ws; the result
 // is left in ws.x
 template <int K, class Team>
 SLAM_HD void adam_team(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const float* __restrict__ sched,
                        int iters) {
-  constexpr int N = 6 * (K + 1), NT = 2 * (K + 1), NO = AdamThread<K>::NO;
+  constexpr int N = 6 * (K + 1), NO = AdamThread<K>::NO;
   SLAM_EACH(tm, t) {
     AdamThread<K>& th = tm.th(t);
 #pragma unroll
@@ -62,39 +104,9 @@ SLAM_HD void adam_team(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const fl
   }
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    SLAM_EACH(tm, t) {
-      for (int s = t; s < NT; s += kAdamTeam) ws.trig[s] = u3_trig(ws.x + 3 * s);
-    }
-    tm.sync();
-    SLAM_EACH(tm, t) {  // column t of P_0..P_K and of U, and its share of t
-      AdamThread<K>& th = tm.th(t);
-      C<float> v[4], w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.f : 0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i <= K; ++i) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ws.P[i][q][t] = v[q];
-        M2<float> A, B;
-        u3_build(ws.trig[2 * i], A, (M2<float>*)nullptr);
-        u3_build(ws.trig[2 * i + 1], B, (M2<float>*)nullptr);
-        kron_col(A, B, v, w);
-        if (i < K) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) ws.y[t][q] = w[q];
-          gate_col(G[i], ws.y[t], v);
-        }
-      }
-      C<float> tr = cjmul(ws.T[t], w[0]);
-#pragma unroll
-      for (int q = 1; q < 4; ++q) tr = cadd(tr, cjmul(ws.T[4 * q + t], w[q]));
-      th.part[0] = tr.re;
-      th.part[1] = tr.im;
-    }
-    tm.sum(&AdamThread<K>::part);
+    adam_forward<K>(tm, ws, G);
     SLAM_EACH(tm, t) {  // X_K = T^dag: row t is conj(T[:, t])
       AdamThread<K>& th = tm.th(t);
-      th.t = cmk(th.part[0], th.part[1]);
 #pragma unroll
       for (int a = 0; a < 4; ++a) th.X[a] = cmk(ws.T[4 * a + t].re, -ws.T[4 * a + t].im);
     }
@@ -180,11 +192,13 @@ SLAM_HD void adam_team(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const fl
 
 // One lane from the raw arrays: load x0 and the target, run, store (the
 // store only where `store`: a team past the last lane repeats lane L-1).
-// The host build reuses one workspace for lane after lane.
-template <int K, class Team>
+// With Cost, one more forward chain at the final x gives the lane's square
+// cost 1 - (|t|^2 + 4)/20 for fout. The host build reuses one workspace
+// for lane after lane.
+template <int K, bool Cost, class Team>
 SLAM_HD void adam_team_io(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const float* __restrict__ x0,
                           const float* __restrict__ tgt, const float* __restrict__ sched, int iters,
-                          int lane, bool store, float* __restrict__ xout) {
+                          int lane, bool store, float* __restrict__ xout, float* __restrict__ fout) {
   constexpr int N = 6 * (K + 1);
   SLAM_EACH(tm, t) {
     for (int p = t; p < N; p += kAdamTeam) ws.x[p] = x0[(size_t)lane * N + p];
@@ -196,6 +210,13 @@ SLAM_HD void adam_team_io(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const
   SLAM_EACH(tm, t) {
     for (int p = t; p < N; p += kAdamTeam) {
       if (store) xout[(size_t)lane * N + p] = ws.x[p];
+    }
+  }
+  if constexpr (Cost) {
+    adam_forward<K>(tm, ws, G);
+    SLAM_EACH(tm, t) {
+      const C<float> tr = tm.th(t).t;
+      if (store && t == 0) fout[lane] = 1.f - (tr.re * tr.re + tr.im * tr.im + 4.f) / 20.f;
     }
   }
 }

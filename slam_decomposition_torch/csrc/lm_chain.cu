@@ -17,7 +17,8 @@
 // thread, more than L1 and L2 hold for the ~34k resident threads) and was
 // bound by that traffic at 12.5% occupancy (255 registers).
 //
-// Design (lm_team.cuh): one warp per lane, four lanes per block. J, r, the
+// Design (lm_team.cuh, its program with a float residual): one warp per
+// lane, four lanes per block. J, r, the
 // chain's prefix and suffix products and the CG direction sit in shared
 // memory (~5.6 KB a lane at k=3); each thread builds one column of J,
 // keeps one row of A in registers and owns one row of the CG vectors; dot
@@ -41,13 +42,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                     const float* __restrict__ gates, int iters, int L,
                     float* __restrict__ xout, float* __restrict__ fout) {
   __shared__ slam::GateNz<float> sG[K];
-  __shared__ slam::LmWs<K> ws[kLanes];
-  for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) slam::gate_nz_entry<float>(gates, sG, idx);
+  __shared__ slam::LmWs<float, K> ws[kLanes];
+  for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) slam::gate_nz_entry(gates, sG, idx);
   __syncthreads();
   const int w = threadIdx.x / slam::kLmTeam;
   const int lane = blockIdx.x * kLanes + w;
-  slam::DevTeam<slam::kLmTeam, slam::LmThread<K>> tm(threadIdx.x % slam::kLmTeam);
-  slam::lm_team_io<K>(tm, ws[w], sG, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  slam::DevTeam<slam::kLmTeam, slam::LmThread<float, K>> tm(threadIdx.x % slam::kLmTeam);
+  slam::lm_team_io<float, K>(tm, ws[w], sG, sG, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout,
+                             fout);
 }
 
 template <int K> cudaError_t occupancy(int* blocks) {

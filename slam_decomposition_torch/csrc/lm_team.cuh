@@ -1,15 +1,19 @@
-// The f32 Levenberg-Marquardt ranking pass for one lane, run by a team of
-// 32 threads (one warp) over a per-lane workspace in shared memory. The
-// kernel (lm_chain.cu) and the host build (host_lanes.cpp) run this same
-// program; chain_common.cuh says how a team runs its steps.
+// Levenberg-Marquardt on the phase residual for one lane, run by a team of
+// 32 threads (one warp) over a per-lane workspace in shared memory. One
+// program, templated on the residual type R, serves two kernels: R = float
+// is the f32 ranking pass (lm_chain.cu), R = double the polish
+// (polish_chain.cu). The kernels and the host build (host_lanes.cpp) run
+// this same program; chain_common.cuh says how a team runs its steps.
 //
-// It computes what chain_common.cuh's one-thread lm_lane<float, K> does:
-// the phase-aligned residual r = vec(U - e^{i phi} T), J = dr/dx in f32,
-// A = J^T J and b = -J^T r, n + 8 CG iterations on (A + lam I) dx = b, the
-// trial step accepted iff ||r||^2 drops, lam x0.3 / x8 clipped to
-// [1e-14, 1e3]. Sums are taken in another order (butterflies, the chain
-// applied column by column), which is f32 rounding only. A rejected step
-// leaves x, and so J, A and b, unchanged: they are kept and not rebuilt.
+// It computes what the plain version does (JAX gauss_newton.lm_one;
+// pallas_chain.py lm_block, polish_block): the phase-aligned residual
+// r = vec(U - e^{i phi} T), the trial step x + dx and the accept test in R;
+// J = dr/dx at float(x), A = J^T J and b = -J^T float(r), n + 8 CG
+// iterations on (A + lam I) dx = b in f32; the trial step accepted iff
+// ||r||^2 drops, lam x0.3 / x8 clipped to [1e-14, 1e3]. Sums are taken in
+// another order (butterflies, the chain applied column by column), which is
+// rounding only. A rejected step leaves x, and so J, A and b, unchanged:
+// they are kept and not rebuilt.
 //
 // Who does what, for n = 6(K+1) parameters:
 //   chain:  threads 0-3 each build one column of every prefix product
@@ -22,7 +26,13 @@
 //   CG:     thread i owns x_i, r_i, p_i, (Ap)_i; the mat-vec reads p from
 //           shared memory (double-buffered: one barrier per iteration),
 //           the two dot products are butterfly sums;
-//   residual: thread e builds r_e; ||r||^2 is a butterfly sum.
+//   residual: thread e builds r_e; ||r||^2 is a butterfly sum in R.
+//
+// With R = float the trial residual comes from the f32 chain parts of the
+// trial point, which are then those J needs if the step is accepted. With
+// R = double the trial residual needs only the chain itself in f64
+// (threads 0-3, one column each, no suffix products), and the f32 chain
+// parts are built at float(x) on the iterations that rebuild J.
 
 #pragma once
 
@@ -31,40 +41,59 @@
 namespace slam {
 
 constexpr int kLmTeam = 32;
+constexpr double kFourPi = 4.0 * 3.14159265358979323846;
+
+// what the workspace holds beside the f32 parts: nothing for the f32 pass,
+// the f64 state for the polish. 64-bit values take two banks, so a column
+// thread's scratch row is padded to 5 entries (80 bytes): the four rows
+// then start 20 banks apart and fall on different banks.
+template <typename R, int K> struct LmHi {};
+template <int K> struct LmHi<double, K> {
+  static constexpr int N = 6 * (K + 1), NT = 2 * (K + 1);
+  double xd[N], xnd[N];     // parameters, trial parameters
+  C<double> Td[16], Vd[16];  // target, the chain of the last f64 residual
+  C<double> yd[4][5];       // per column thread: vector before a gate product
+  C<double> trd[4];         // per column thread: its column's part of tr(T^dag V)
+  Trig<double> trigd[NT];   // u3 factors of the last f64 residual
+};
 
 // per-lane workspace in shared memory; rows of J and p padded to NP (a
 // multiple of 4) and 16-byte aligned for 16-byte loads; matrices row-major
-// with one padding entry so that the K+1 matrices fall on different banks
-template <int K> struct LmWs {
+// with one padding entry so that the K+1 matrices fall on different banks.
+// With R = double, x is float(xd) (where J is taken) and xn is not used.
+template <typename R, int K> struct LmWs : LmHi<R, K> {
   static constexpr int N = 6 * (K + 1), NP = (N + 3) / 4 * 4, NT = 2 * (K + 1), MS = 17;
   alignas(16) float J[32][NP];  // J[e][p] = d r_e / d x_p
   alignas(16) float p[2][NP];   // CG direction, double-buffered
   float x[N], xn[N];          // parameters, trial parameters
-  float r[32], rn[32];        // residual of x, of xn
+  float r[32], rn[32];        // residual of x, of the trial point, as f32
   C<float> T[16];             // target
-  C<float> P[K + 1][MS];      // prefix products (of the last chain built)
+  C<float> P[K + 1][MS];      // prefix products (of the last f32 chain built)
   C<float> S[K + 1][MS];      // suffix products
   C<float> V[16];             // the chain
   C<float> y[8][4];           // per chain thread: vector before a gate product
-  Trig<float> trig[NT];       // u3 factors of the last chain built
+  Trig<float> trig[NT];       // u3 factors of the last f32 chain built
 };
 
-template <int K> struct LmThread {
+template <typename R, int K> struct LmThread {
   static constexpr int N = 6 * (K + 1);
   float arow[N];          // row t of A = J^T J
   float b, xc, rc, pc, ap;  // CG: right-hand side, x, r, p, (A + lam I) p of this row
-  float rs, f0, lam;      // uniform across the team
-  C<float> z;             // e^{i phi} of the last chain built
-  float mag;              // |tr(T^dag U)| of the last chain built
+  float rs;               // uniform across the team
+  int shift;              // the polish's CG runs on b 2^-shift (uniform)
+  R f0, lam;              // uniform across the team
+  C<float> z;             // e^{i phi} of the last f32 chain built
+  float mag;              // |tr(T^dag U)| of the last f32 chain built
   bool fresh;             // x moved: J, A and b must be rebuilt
-  float part[1];          // operand of the team's sums
+  float part[1];          // operand of the CG's sums
+  R sq[1];                // operand of the sum ||r||^2
 };
 
 // trig of xs, then the chain parts P, S, V; ends with a barrier
-template <int K, class Team>
-SLAM_HD void lm_chain_parts(Team& tm, LmWs<K>& ws, const float* xs, const GateNz<float>* G) {
+template <typename R, int K, class Team>
+SLAM_HD void lm_chain_parts(Team& tm, LmWs<R, K>& ws, const float* xs, const GateNz<float>* G) {
   SLAM_EACH(tm, t) {
-    if (t < LmWs<K>::NT) ws.trig[t] = u3_trig(xs + 3 * t);
+    if (t < LmWs<R, K>::NT) ws.trig[t] = u3_trig(xs + 3 * t);
   }
   tm.sync();
   SLAM_EACH(tm, t) {
@@ -112,27 +141,92 @@ SLAM_HD void lm_chain_parts(Team& tm, LmWs<K>& ws, const float* xs, const GateNz
   tm.sync();
 }
 
-// every thread: the phase of the chain, then residual entry t into out and
-// its square into part[0]
-template <int K, class Team> SLAM_HD void lm_residual(Team& tm, LmWs<K>& ws, float* out) {
-  SLAM_EACH(tm, t) {
-    LmThread<K>& th = tm.th(t);
-    C<float> tr = cjmul(ws.T[0], ws.V[0]);
-    for (int e = 1; e < 16; ++e) tr = cadd(tr, cjmul(ws.T[e], ws.V[e]));
-    th.mag = sqrtf(tr.re * tr.re + tr.im * tr.im + Eps<float>::v());
-    th.z = cmk(tr.re / th.mag, tr.im / th.mag);
-    const int e = t & 15;
-    const C<float> zt = cmul(th.z, ws.T[e]);
-    const float v = t < 16 ? ws.V[e].re - zt.re : ws.V[e].im - zt.im;
-    out[t] = v;
-    th.part[0] = v * v;
-  }
-  tm.sum(&LmThread<K>::part);
+// e^{i phi} = t/|t| and |t| of a trace t = tr(T^dag V)
+template <typename F> SLAM_HD void phase_of(C<F> tr, C<F>& z, F& mag) {
+  mag = sqrt_(tr.re * tr.re + tr.im * tr.im + Eps<F>::v());
+  z = cmk(tr.re / mag, tr.im / mag);
 }
 
-// column t of J at the last chain built (thread t < n): D = dU/dx_t is
+// the phase of the f32 chain in ws.V, every thread for itself
+template <typename R, int K> SLAM_HD void lm_phase(const LmWs<R, K>& ws, LmThread<R, K>& th) {
+  C<float> tr = cjmul(ws.T[0], ws.V[0]);
+  for (int e = 1; e < 16; ++e) tr = cadd(tr, cjmul(ws.T[e], ws.V[e]));
+  phase_of(tr, th.z, th.mag);
+}
+
+// entry t of r = vec(V - z T): real parts, then imaginary parts
+template <typename F> SLAM_HD F lm_residual_entry(int t, const C<F>* T, const C<F>* V, C<F> z) {
+  const int e = t & 15;
+  const C<F> zt = cmul(z, T[e]);
+  return t < 16 ? V[e].re - zt.re : V[e].im - zt.im;
+}
+
+// every thread: the phase of the f32 chain, then residual entry t into out
+// and its square into sq[0], summed over the team
+template <int K, class Team> SLAM_HD void lm_residual(Team& tm, LmWs<float, K>& ws, float* out) {
+  SLAM_EACH(tm, t) {
+    LmThread<float, K>& th = tm.th(t);
+    lm_phase(ws, th);
+    const float v = lm_residual_entry(t, ws.T, ws.V, th.z);
+    out[t] = v;
+    th.sq[0] = v * v;
+  }
+  tm.sum(&LmThread<float, K>::sq);
+}
+
+// The polish's residual at xs, in f64: its sines and cosines (one pair a
+// thread), then threads 0-3 one column of the chain each with its part of
+// tr(T^dag V), then every thread the phase and entry t, whose f32 cast goes
+// into out (r enters b only) and whose f64 square into sq[0], summed over
+// the team.
+template <int K, class Team>
+SLAM_HD void lm_residual_f64(Team& tm, LmWs<double, K>& ws, const double* xs, const GateNz<double>* G,
+                             float* out) {
+  SLAM_EACH(tm, t) {
+    if (t < 4 * LmWs<double, K>::NT) u3_trig_pair(xs + 3 * (t / 4), t % 4, ws.trigd[t / 4]);
+  }
+  tm.sync();
+  SLAM_EACH(tm, t) {
+    if (t < 4) {
+      C<double> v[4], w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.0 : 0.0, 0.0);
+#pragma unroll
+      for (int i = 0; i <= K; ++i) {
+        M2<double> A, B;
+        u3_build(ws.trigd[2 * i], A, (M2<double>*)nullptr);
+        u3_build(ws.trigd[2 * i + 1], B, (M2<double>*)nullptr);
+        kron_col(A, B, v, w);
+        if (i < K) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ws.yd[t][q] = w[q];
+          gate_col(G[i], ws.yd[t], v);
+        }
+      }
+      C<double> tr = cjmul(ws.Td[t], w[0]);
+#pragma unroll
+      for (int q = 1; q < 4; ++q) tr = cadd(tr, cjmul(ws.Td[4 * q + t], w[q]));
+      ws.trd[t] = tr;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ws.Vd[4 * q + t] = w[q];
+    }
+  }
+  tm.sync();
+  SLAM_EACH(tm, t) {
+    C<double> z;
+    double mag;
+    phase_of(cadd(cadd(ws.trd[0], ws.trd[1]), cadd(ws.trd[2], ws.trd[3])), z, mag);
+    const double v = lm_residual_entry(t, ws.Td, ws.Vd, z);
+    out[t] = (float)v;
+    tm.th(t).sq[0] = v * v;
+  }
+  tm.sum(&LmThread<double, K>::sq);
+}
+
+// column t of J at the last f32 chain built (thread t < n): D = dU/dx_t is
 // written into the column first, then the phase factor's term is taken off
-template <int K> SLAM_HD void lm_jacobian_column(int t, LmWs<K>& ws, const LmThread<K>& th) {
+template <typename R, int K>
+SLAM_HD void lm_jacobian_column(int t, LmWs<R, K>& ws, const LmThread<R, K>& th) {
   const int i = t / 6, j = t % 6;
   M2<float> first, second;  // dL_i/dx_t = first (x) second
   if (j < 3) {
@@ -181,29 +275,44 @@ template <int N> SLAM_HD void axpy_row(float a, const float* row, float* acc) {
   }
 }
 
-// iters LM iterations on ws.x (loaded, with ws.T, before the call); ends
-// with the final accepted ||r||^2 in every thread's f0
-template <int K, class Team>
-SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
+// iters LM iterations on the lane's parameters (ws.x for the f32 pass,
+// ws.xd for the polish; loaded, with the target, before the call); G are the
+// f32 gate lists, GR those of the residual's type (the polish's f64 chain).
+// Ends with the final accepted ||r||^2 in every thread's f0.
+template <typename R, int K, class Team>
+SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
   constexpr int N = 6 * (K + 1);
-  lm_chain_parts<K>(tm, ws, ws.x, G);
-  lm_residual<K>(tm, ws, ws.r);
+  constexpr bool kF64 = sizeof(R) == sizeof(double);
+  if constexpr (kF64) {
+    lm_residual_f64<K>(tm, ws, ws.xd, GR, ws.r);
+  } else {
+    lm_chain_parts<R, K>(tm, ws, ws.x, G);
+    lm_residual<K>(tm, ws, ws.r);
+  }
   SLAM_EACH(tm, t) {
-    LmThread<K>& th = tm.th(t);
-    th.f0 = th.part[0];
-    th.lam = 1e-3f;
+    LmThread<R, K>& th = tm.th(t);
+    th.f0 = th.sq[0];
+    th.lam = R(1e-3);
     th.fresh = true;
   }
   tm.sync();
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    if (tm.any().fresh) {  // uniform; the chain parts in ws are those of x
+    if (tm.any().fresh) {  // uniform
+      if constexpr (kF64) {  // the f32 chain parts at float(x), and their phase
+        SLAM_EACH(tm, t) {
+          if (t < N) ws.x[t] = (float)ws.xd[t];
+        }
+        tm.sync();
+        lm_chain_parts<R, K>(tm, ws, ws.x, G);
+        SLAM_EACH(tm, t) lm_phase(ws, tm.th(t));
+      }  // else the chain parts in ws are those of x already
       SLAM_EACH(tm, t) {
-        if (t < N) lm_jacobian_column<K>(t, ws, tm.th(t));
+        if (t < N) lm_jacobian_column<R, K>(t, ws, tm.th(t));
       }
       tm.sync();
       SLAM_EACH(tm, t) {
-        LmThread<K>& th = tm.th(t);
+        LmThread<R, K>& th = tm.th(t);
         float b = 0.f;
 #pragma unroll
         for (int j = 0; j < N; ++j) th.arow[j] = 0.f;
@@ -218,23 +327,34 @@ SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
         th.b = -b;
       }
     }
+    SLAM_EACH(tm, t) tm.th(t).part[0] = tm.th(t).b * tm.th(t).b;
+    tm.sum(&LmThread<R, K>::part);
     SLAM_EACH(tm, t) {  // CG from 0; threads t >= N carry zeros
-      LmThread<K>& th = tm.th(t);
+      LmThread<R, K>& th = tm.th(t);
+      float b = th.b;
+      th.rs = th.part[0];
+      if constexpr (kF64) {
+        // Near convergence b^T b falls to 1e-26 and below, and CG takes it
+        // down by another 1e-14: f32 then leaves its normal range, where a
+        // division takes the slow path (and loses bits). CG is linear in b
+        // and exact under a power of two, so it runs on b 2^-s with
+        // b^T b 2^-2s in [1/2, 4), and dx is scaled back in f64.
+        th.shift = th.rs > 0.f && th.rs <= kF32Max ? ilogbf(th.rs) / 2 : 0;
+        b = ldexpf(b, -th.shift);
+        th.rs = ldexpf(th.rs, -2 * th.shift);
+      }
       th.xc = 0.f;
-      th.rc = th.b;
-      th.pc = th.b;
-      if (t < N) ws.p[0][t] = th.b;
-      th.part[0] = th.b * th.b;
+      th.rc = b;
+      th.pc = b;
+      if (t < N) ws.p[0][t] = b;
     }
-    tm.sum(&LmThread<K>::part);
-    SLAM_EACH(tm, t) tm.th(t).rs = tm.th(t).part[0];
     tm.sync();
 #pragma unroll 1
     for (int c = 0; c < N + kCgExtra; ++c) {
       SLAM_EACH(tm, t) {
-        LmThread<K>& th = tm.th(t);
+        LmThread<R, K>& th = tm.th(t);
         const float* p = ws.p[c & 1];
-        float acc = th.lam * th.pc;
+        float acc = (float)th.lam * th.pc;
 #pragma unroll
         for (int j4 = 0; j4 < (N + 3) / 4; ++j4) {
           const F4 q = f4(p + 4 * j4);
@@ -245,9 +365,9 @@ SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
         th.ap = t < N ? acc : 0.f;
         th.part[0] = th.pc * th.ap;
       }
-      tm.sum(&LmThread<K>::part);
+      tm.sum(&LmThread<R, K>::part);
       SLAM_EACH(tm, t) {
-        LmThread<K>& th = tm.th(t);
+        LmThread<R, K>& th = tm.th(t);
         // guards keep NaN (as torch.clamp_min does) but lift 0 and underflow
         const float pAp = th.part[0];
         const float alpha = th.rs / (pAp < kF32Tiny ? kF32Tiny : pAp);
@@ -255,9 +375,9 @@ SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
         th.rc -= alpha * th.ap;
         th.part[0] = th.rc * th.rc;
       }
-      tm.sum(&LmThread<K>::part);
+      tm.sum(&LmThread<R, K>::part);
       SLAM_EACH(tm, t) {
-        LmThread<K>& th = tm.th(t);
+        LmThread<R, K>& th = tm.th(t);
         const float rs_new = th.part[0];
         const float beta = rs_new / (th.rs < kF32Tiny ? kF32Tiny : th.rs);
         th.pc = th.rc + beta * th.pc;
@@ -266,25 +386,37 @@ SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
       }
       tm.sync();
     }
-    SLAM_EACH(tm, t) {
-      if (t < N) ws.xn[t] = ws.x[t] + tm.th(t).xc;
+    if constexpr (kF64) {
+      SLAM_EACH(tm, t) {
+        if (t < N) ws.xnd[t] = ws.xd[t] + ldexp((double)tm.th(t).xc, tm.th(t).shift);
+      }
+      tm.sync();
+      lm_residual_f64<K>(tm, ws, ws.xnd, GR, ws.rn);
+    } else {
+      SLAM_EACH(tm, t) {
+        if (t < N) ws.xn[t] = ws.x[t] + tm.th(t).xc;
+      }
+      tm.sync();
+      lm_chain_parts<R, K>(tm, ws, ws.xn, G);
+      lm_residual<K>(tm, ws, ws.rn);
     }
-    tm.sync();
-    lm_chain_parts<K>(tm, ws, ws.xn, G);
-    lm_residual<K>(tm, ws, ws.rn);
     SLAM_EACH(tm, t) {
-      LmThread<K>& th = tm.th(t);
-      const float fn = th.part[0];
+      LmThread<R, K>& th = tm.th(t);
+      const R fn = th.sq[0];
       th.fresh = fn < th.f0;  // a NaN trial step is "not improved"
       if (th.fresh) {
-        if (t < N) ws.x[t] = ws.xn[t];
+        if constexpr (kF64) {
+          if (t < N) ws.xd[t] = ws.xnd[t];
+        } else {
+          if (t < N) ws.x[t] = ws.xn[t];
+        }
         ws.r[t] = ws.rn[t];
         th.f0 = fn;
-        th.lam = th.lam * 0.3f;
+        th.lam = th.lam * R(0.3);
       } else {
-        th.lam = th.lam * 8.0f;
+        th.lam = th.lam * R(8.0);
       }
-      th.lam = th.lam < 1e-14f ? 1e-14f : (th.lam > 1e3f ? 1e3f : th.lam);
+      th.lam = th.lam < R(1e-14) ? R(1e-14) : (th.lam > R(1e3) ? R(1e3) : th.lam);
     }
     tm.sync();
   }
@@ -292,20 +424,38 @@ SLAM_HD void lm_team(Team& tm, LmWs<K>& ws, const GateNz<float>* G, int iters) {
 
 // One lane from the raw arrays: load x0 and the target, run, store (the
 // store only where `store`: a team past the last lane repeats lane L-1).
-// The host build reuses one workspace for lane after lane.
-template <int K, class Team>
-SLAM_HD void lm_team_io(Team& tm, LmWs<K>& ws, const GateNz<float>* G, const float* __restrict__ x0,
-                        const float* __restrict__ tgt, int iters, int lane, bool store,
-                        float* __restrict__ xout, float* __restrict__ fout) {
+// The polish first reduces its angles mod 4 pi (u3 is 4 pi-periodic in
+// every angle) and keeps the f32 cast of the target for J. The host build
+// reuses one workspace for lane after lane.
+template <typename R, int K, class Team>
+SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR,
+                        const R* __restrict__ x0, const R* __restrict__ tgt, int iters, int lane,
+                        bool store, R* __restrict__ xout, R* __restrict__ fout) {
   constexpr int N = 6 * (K + 1);
+  constexpr bool kF64 = sizeof(R) == sizeof(double);
   SLAM_EACH(tm, t) {
-    if (t < N) ws.x[t] = x0[(size_t)lane * N + t];
-    if (t < 16) ws.T[t] = cmk(tgt[32 * (size_t)lane + 2 * t], tgt[32 * (size_t)lane + 2 * t + 1]);
+    const R* tg = tgt + 32 * (size_t)lane;
+    if constexpr (kF64) {
+      if (t < N) {
+        const double v = x0[(size_t)lane * N + t];
+        ws.xd[t] = v - kFourPi * rint(v / kFourPi);
+      }
+      if (t < 16) {
+        ws.Td[t] = cmk(tg[2 * t], tg[2 * t + 1]);
+        ws.T[t] = cmk((float)tg[2 * t], (float)tg[2 * t + 1]);
+      }
+    } else {
+      if (t < N) ws.x[t] = x0[(size_t)lane * N + t];
+      if (t < 16) ws.T[t] = cmk(tg[2 * t], tg[2 * t + 1]);
+    }
   }
   tm.sync();
-  lm_team<K>(tm, ws, G, iters);
+  lm_team<R, K>(tm, ws, G, GR, iters);
   SLAM_EACH(tm, t) {
-    if (store && t < N) xout[(size_t)lane * N + t] = ws.x[t];
+    if (store && t < N) {
+      if constexpr (kF64) xout[(size_t)lane * N + t] = ws.xd[t];
+      else xout[(size_t)lane * N + t] = ws.x[t];
+    }
     if (store && t == 0) fout[lane] = tm.th(t).f0;
   }
 }

@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-The sources in ``csrc/`` compile into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), named by a hash
-of the sources and flags, under ``build/slam_torch_kernels/`` at the root
-of the checkout. The first call in a process builds it when it is missing;
+The sources in ``csrc/`` compile, one nvcc per source and all at once, into
+one shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), named by a hash of the sources and flags, under
+``build/slam_torch_kernels/`` at the root of the checkout. The first call
+in a process builds it when it is missing;
 later calls reuse it. Pointers and the stream are passed as
 ``ctypes.c_void_p`` and ints as ``ctypes.c_int``.
 """
@@ -25,12 +26,12 @@ from slam_decomposition_torch.config import build_dir
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> argtypes (the trailing c_void_p is the CUDA stream)
 SIGNATURES = {
-    "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],  # xout, fout (may be null)
     "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
@@ -77,16 +78,27 @@ def build() -> dict:
         return {"path": out, "seconds": 0.0, "ptxas": log.read_text()}
     out.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    objs = [tmp.with_name(f"{tmp.name}.{f.stem}.o") for f in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(f)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(cu, objs)
+    ]
+    reports = [p.communicate()[0] for p in procs]
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    report = "".join(reports) + link.stdout
+    if link.returncode != 0 or any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{report}")
     os.replace(tmp, out)
-    log.write_text(proc.stdout + proc.stderr)
-    return {"path": out, "seconds": seconds, "ptxas": log.read_text()}
+    log.write_text(report)
+    return {"path": out, "seconds": seconds, "ptxas": report}
 
 
 @functools.lru_cache(maxsize=None)

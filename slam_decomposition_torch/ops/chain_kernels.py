@@ -143,8 +143,9 @@ def lm_chain_ref(x, tgt, gates, iters: int = LM32_ITERS):
     return x, f0
 
 
-def adam_chain_ref(x0, tgt, gates, sched):
-    """Plain Adam: one step per schedule row, gradients by autograd."""
+def adam_chain_ref(x0, tgt, gates, sched, with_cost: bool = False):
+    """Plain Adam: one step per schedule row, gradients by autograd. With
+    ``with_cost`` also the square cost at the final x."""
     x = x0.clone()
     m = torch.zeros_like(x)
     v = torch.zeros_like(x)
@@ -156,7 +157,7 @@ def adam_chain_ref(x0, tgt, gates, sched):
         mhat = m * sched[i, 0]
         vhat = v * sched[i, 1]
         x = x - sched[i, 2] * mhat / (torch.sqrt(vhat) + 1e-8)
-    return x
+    return (x, square_cost(x, tgt, gates)) if with_cost else x
 
 
 def reduce_angles(x: torch.Tensor) -> torch.Tensor:
@@ -223,20 +224,25 @@ def _p(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def adam_chain(x0, tgt, gates, sched):
+def adam_chain(x0, tgt, gates, sched, with_cost: bool = False):
     """Adam warm start: x0 (L, n) f32, tgt (L, 4, 4) complex64, gates
-    (k, 4, 4) complex64, sched (iters, 3) f32 -> x (L, n) f32."""
+    (k, 4, 4) complex64, sched (iters, 3) f32 -> x (L, n) f32, or with
+    ``with_cost`` (x, square cost at x (L,) f32), from the kernel instance
+    that ends with one more chain evaluation (JAX ``make_adam_chain``'s
+    ``with_cost``)."""
     L, n, k = _check_lanes(x0, tgt, gates, torch.float32, torch.complex64)
     _check("sched", sched, torch.float32, (sched.shape[0], 3), x0.device)
     if not _kernel_target(x0, k):
-        return adam_chain_ref(x0, tgt, gates, sched)
+        return adam_chain_ref(x0, tgt, gates, sched, with_cost)
     out = torch.empty_like(x0)
+    cost = torch.empty(L, dtype=torch.float32, device=x0.device) if with_cost else None
     _launch(
         "slam_adam_chain", _p(x0), _p(tgt), _p(gates), _p(sched),
         ctypes.c_int(sched.shape[0]), ctypes.c_int(k), ctypes.c_int(L), _p(out),
+        _p(cost) if with_cost else None,
     )
     adam_chain.launches += 1
-    return out
+    return (out, cost) if with_cost else out
 
 
 def lm_chain(x, tgt, gates, iters: int = LM32_ITERS):

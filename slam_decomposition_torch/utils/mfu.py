@@ -152,7 +152,11 @@ def lm_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dic
 
 def polish_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dict:
     """One polish_chain launch: as lm_launch, with the initial and trial
-    residuals in f64 at the f64 rate and all data in f64."""
+    residuals in f64 at the f64 rate and all data in f64. The count is by
+    the function, not by the kernel: each f64 residual is charged a dense
+    chain F although the kernel multiplies by the gates through their
+    nonzeros, and the f32 chain at float(x) that J's prefix products come
+    from is not charged (the f32 LM has it from its trial residual)."""
     _, cg, F = _lm_parts(k)
     rebuild = lm_rebuild_flops(k)
     fresh = iters if fresh is None else fresh

@@ -15,6 +15,7 @@ from slam_decomposition_tpu.models import gates as jgates
 from slam_decomposition_tpu.models import templates as jtemplates
 from slam_decomposition_tpu.ops import cplx as jcplx
 from slam_decomposition_tpu.opt.gauss_newton import make_solver as jmake_solver
+from slam_decomposition_tpu.ops.pallas_chain import make_adam_chain as jmake_adam_chain
 from slam_decomposition_tpu.opt.samplers import haar_sample
 
 from slam_decomposition_torch.ops import chain_kernels as ck
@@ -49,6 +50,28 @@ def test_plain_adam_matches_jax_adam_segment(k):
     # identical math modulo f32 association; 25 steps keep the drift tiny
     # (the JAX Pallas kernel's own interpret-mode bound)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+def test_plain_adam_with_cost_matches_jax_kernel_with_cost():
+    """The JAX kernel's with_cost output, run as the JAX package's own test
+    runs it on the CPU (interpret mode, 8 sublanes, 25 steps at k=2), against
+    the port's (x, cost) on the same inputs: x within the 25-step f32 drift
+    (5e-5), the cost within 2e-6 of the JAX kernel's (its own test's bound)
+    and equal to the plain square cost of the returned x."""
+    ja, _, T, x0, g64 = _setup(2, 4)
+    x32 = x0[:8].astype(np.float32)
+    t32 = jcplx.from_numpy(T[:8], dtype=jnp.float32)
+    run = jmake_adam_chain(ja.chain_gates, adam_iters=25, interpret=True, sublanes=8, with_cost=True)
+    xj, fj = run(jnp.asarray(x32), t32[0], t32[1])
+    T32 = torch.as_tensor(T[:8]).to(torch.complex64)
+    g32 = g64.to(torch.complex64)
+    xt, ft = ck.adam_chain(torch.as_tensor(x32), T32, g32, ck.adam_schedule(25), with_cost=True)
+    assert ft.shape == (8,) and ft.dtype == torch.float32
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=5e-5)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=2e-6)
+    assert torch.equal(ft, ck.square_cost(xt, T32, g32))
+    # without the flag the wrapper returns x alone, the same x
+    assert torch.equal(ck.adam_chain(torch.as_tensor(x32), T32, g32, ck.adam_schedule(25)), xt)
 
 
 @pytest.mark.parametrize("k", [2, 3])
