@@ -7,23 +7,21 @@ Phases, one line each (more for the build report):
   2. build: compile the CUDA kernels from slam_decomposition_torch/csrc with
      nvcc, print the build seconds, ptxas registers / spills and the
      resident blocks and warps per SM (CUDA occupancy calculator) of each
-     kernel instance; every instance must build without spills or a stack
-     frame beyond a few bytes;
+     kernel instance; every instance must build without spills and with no
+     stack frame beyond the math library's sincos scratch;
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
      polish), at k=2 and k=3, with times of both after one warm call, and
      each instance's FLOPs, bound and share of the bound from the port's
      flop model (slam_decomposition_torch/utils/mfu.py) at those shapes;
-     the Adam instance that also returns the square cost, against the plain
-     square cost of its x;
+     the Adam instance that also returns the square cost must return the
+     default instance's x bit for bit and the plain square cost of that x;
   4. main path: slam_decomposition_torch.pipeline.decompose_haar at
      B=100000, chunk=10000, restarts=4, thresh=1e-10, seed=456, which must
      give the k histogram {2: 79029, 3: 20971}, certify every target at
      square cost <= 1e-10, and launch every kernel once per chunk it
-     solves (warm-up, k buckets and rescue rounds); then, outside the
-     counted run, one chunk of its targets per k through
-     ChainSolver(top_m=2) beside the flat solve;
+     solves (warm-up, k buckets and rescue rounds);
   5. transpile path, counted like the main path:
      (a) QFT-64 (2048 blocks): the sqiSwap count histogram, then
      slam_decomposition_torch.transpile.passes.pass_manager_basic(qft(64),
@@ -69,8 +67,10 @@ SOURCES = {
 ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
 ADAM_COST_FRAC_TOL = 0.01
 ADAM_WITH_COST_ATOL = 1e-5  # the kernel's f32 cost against the plain f32 cost of its x
-TOP_M, TOP_M_CERT_FRAC = 2, 0.9  # top_m=2 must certify >= 0.9 of what the flat solve does
-STACK_MAX = 80  # bytes of stack frame an instance may have: sincosf's / sincos's range-reduction scratch (32 / 72 B)
+# bytes of stack frame an instance may have: the scratch of sincosf's / sincos's
+# slow-path range reduction (32 / 72 B; with those two calls replaced every
+# instance builds with a 0 B frame, PERF.md section 6), no array of the kernels'
+STACK_MAX = 72
 LM_RTOL, LM_ATOL, LM_LANE_FRAC = 1e-3, 1e-5, 0.99
 POLISH_VERDICT_FRAC, POLISH_COST_ATOL, CERT_ATOL = 0.999, 1e-11, 1e-13
 # transpile phase. QFT-64's reference values are the JAX package's own
@@ -164,25 +164,14 @@ def bound_line(name, k, bound, ms):
 
 
 def phase_parity():
-    from slam_decomposition_torch.models import gates
-    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
     from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
     from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
     stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
     for k in (2, 3):
-        a = build_ansatz(cycle_gates([gates.SQISWAP], k))
-        n = a.n_params
-        g64 = torch.as_tensor(a.chain_gates).to(dev)
-        g32 = g64.to(torch.complex64)
-        T = torch.as_tensor(haar_sample(CHUNK, seed=1000 + k)).to(dev)
-        lanes_t = T.to(torch.complex64).repeat_interleave(RESTARTS, 0).contiguous()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(k)
-        x0 = (torch.rand((CHUNK * RESTARTS, n), generator=gen, device=dev) * (2 * math.pi)).contiguous()
-        sched = ck.adam_schedule(device=dev)
+        g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, CHUNK, RESTARTS, dev).values()
 
         # Adam: f32 association order differs, and Adam's m/sqrt(v) step
         # amplifies it on lanes whose gradient components sit near zero
@@ -205,11 +194,14 @@ def phase_parity():
         st["max_abs_err"] = max(st["max_abs_err"], d.max().item())
         st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
         st[f"bound_k{k}"] = bound_line("adam_chain", k, mfu.adam_launch(k, x0.shape[0], sched.shape[0]), ms)
-        # the instance that also returns the square cost at its x
+        # the instance that also returns the square cost: the same program
+        # up to the last step, so its x must be the default instance's (held
+        # to the plain version above) bit for bit
         (xc, cost), ms_c = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched, with_cost=True))
         cerr = (cost - ck.square_cost(xc, lanes_t, g32)).abs().max().item()
-        print(f"[parity] adam_chain with_cost k={k}: max|dx| to the default instance {(xc - xa).abs().max().item():.3e}, "
-              f"max|cost - plain cost of its x| {cerr:.3e} (need <= {ADAM_WITH_COST_ATOL:g}); kernel {ms_c:.3f} ms")
+        print(f"[parity] adam_chain with_cost k={k}: max|dx| to the default instance {(xc - xa).abs().max().item():.3e} "
+              f"(need 0), max|cost - plain cost of its x| {cerr:.3e} (need <= {ADAM_WITH_COST_ATOL:g}); kernel {ms_c:.3f} ms")
+        check(torch.equal(xc, xa), f"adam_chain with_cost k={k}: x differs from the default instance's")
         check(cerr <= ADAM_WITH_COST_ATOL, f"adam_chain with_cost k={k}: cost disagrees with the plain cost of its x")
 
         # LM: compare ||r||^2 per lane; accept/reject decisions near the f32
@@ -229,8 +221,7 @@ def phase_parity():
         st[f"bound_k{k}"] = bound_line("lm_chain", k, mfu.lm_launch(k, xa.shape[0], ck.LM32_ITERS, fresh), ms)
 
         # polish from each target's best restart
-        best = torch.argmin(fl.view(CHUNK, RESTARTS), dim=1)
-        xb = xl.view(CHUNK, RESTARTS, n)[torch.arange(CHUNK, device=dev), best].double().contiguous()
+        xb = best_restart(xl, fl, RESTARTS)
         err, ms, plain_ms = polish_parity(f"k={k}", xb, T, g64)
         st = stats["polish_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -311,37 +302,7 @@ def phase_main_path(card):
     check(r.n_certified == B, f"certified {r.n_certified} of {B}")
     check(worst <= THRESH, f"worst loss {worst} > {THRESH}")
     check(all(v == want for v in counts.values()), f"launches {counts}, expected {want} of each kernel")
-    return counts, r.n_certified / t["total"], r.ks
-
-
-def phase_top_m(card, ks):
-    """One chunk of the main path's targets per k through ChainSolver(top_m=
-    TOP_M) beside the flat solve from the same x0s (outside the counted
-    runs): the cut halves the LM's lanes and must keep certifying."""
-    from slam_decomposition_torch.models import gates
-    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
-    from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.opt.gauss_newton import ChainSolver
-    from slam_decomposition_torch.opt.samplers import haar_sample
-
-    dev = torch.device("cuda")
-    U = haar_sample(B, seed=SEED)
-    for k in (2, 3):
-        cg = build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates
-        T = torch.as_tensor(U[ks == k][:CHUNK]).to(dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED + k)
-        x0 = torch.rand((len(T), RESTARTS, 6 * (k + 1)), generator=gen, device=dev, dtype=torch.float64) * (2 * math.pi)
-        n_cert, ms = {}, {}
-        for name, solver in (("flat", ChainSolver(cg, dev)), ("top_m", ChainSolver(cg, dev, top_m=TOP_M))):
-            ck.reset_launch_counts()
-            (_, loss), ms[name] = timed_ms(lambda: solver.solve(x0, T))
-            n_cert[name] = int((loss <= THRESH).sum())
-            check(all(v == 2 for v in ck.launch_counts().values()), f"top_m check k={k} {name}: launches {ck.launch_counts()}")
-        print(f"[top_m] {card}: k={k} {len(T)} targets x {RESTARTS} restarts: top_m={TOP_M} certifies {n_cert['top_m']} "
-              f"in {ms['top_m']:.3f} ms, flat solve {n_cert['flat']} in {ms['flat']:.3f} ms "
-              f"(need >= {TOP_M_CERT_FRAC} of the flat solve's)")
-        check(n_cert["top_m"] >= TOP_M_CERT_FRAC * n_cert["flat"], f"top_m={TOP_M} k={k} certifies too few")
+    return counts, r.n_certified / t["total"]
 
 
 def contract(results, U):
@@ -476,8 +437,7 @@ def main() -> int:
         card = phase_device()
         phase_build()
         stats = phase_parity()
-        counts, main_rate, ks = phase_main_path(card)
-        phase_top_m(card, ks)
+        counts, main_rate = phase_main_path(card)
         t_counts, t_polish_err = phase_transpile(card, main_rate)
         counts = {name: counts[name] + t_counts[name] for name in counts}
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)

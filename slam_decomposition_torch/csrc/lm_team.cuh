@@ -36,6 +36,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "chain_common.cuh"
 
 namespace slam {
@@ -282,7 +284,7 @@ template <int N> SLAM_HD void axpy_row(float a, const float* row, float* acc) {
 template <typename R, int K, class Team>
 SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
   constexpr int N = 6 * (K + 1);
-  constexpr bool kF64 = sizeof(R) == sizeof(double);
+  constexpr bool kF64 = std::is_same_v<R, double>;
   if constexpr (kF64) {
     lm_residual_f64<K>(tm, ws, ws.xd, GR, ws.r);
   } else {
@@ -432,7 +434,7 @@ SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const 
                         const R* __restrict__ x0, const R* __restrict__ tgt, int iters, int lane,
                         bool store, R* __restrict__ xout, R* __restrict__ fout) {
   constexpr int N = 6 * (K + 1);
-  constexpr bool kF64 = sizeof(R) == sizeof(double);
+  constexpr bool kF64 = std::is_same_v<R, double>;
   SLAM_EACH(tm, t) {
     const R* tg = tgt + 32 * (size_t)lane;
     if constexpr (kF64) {

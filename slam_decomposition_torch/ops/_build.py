@@ -87,14 +87,18 @@ def build() -> dict:
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for f, o in zip(cu, objs)
     ]
-    reports = [p.communicate()[0] for p in procs]
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False)
+    report = "".join(p.communicate()[0] for p in procs)
+    ok = all(p.returncode == 0 for p in procs)
+    if ok:  # link only what compiled
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False)
+        report += link.stdout
+        ok = link.returncode == 0
     seconds = time.perf_counter() - t0
     for o in objs:
         o.unlink(missing_ok=True)
-    report = "".join(reports) + link.stdout
-    if link.returncode != 0 or any(p.returncode != 0 for p in procs):
+    if not ok:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed:\n{report}")
     os.replace(tmp, out)
     log.write_text(report)

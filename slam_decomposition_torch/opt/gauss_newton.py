@@ -14,10 +14,6 @@ restart per target with its certified square cost:
    whose final accepted f = ||r||^2 gives the certificate
    cost = 0.2 f - f^2/80 (exact for unitary pairs; JAX gauss_newton.py:543-548).
 
-With ``top_m`` (JAX ``make_solver(top_m=...)``, gauss_newton.py:233-249,
-:489-508) Adam also returns each restart's square cost, and only the
-``top_m`` restarts of smallest cost per target enter step 2.
-
 On CUDA tensors the three steps are the hand-written kernels; on CPU
 tensors their plain PyTorch versions.
 
@@ -44,14 +40,9 @@ def certificate(f: torch.Tensor) -> torch.Tensor:
 
 
 class ChainSolver:
-    """The solver of one chain depth k on one device (the card by default).
-    ``top_m`` (None: all of them) is the number of restarts per target that
-    the f32 LM ranks, chosen by their square cost after Adam."""
+    """The solver of one chain depth k on one device (the card by default)."""
 
-    def __init__(self, chain_gates: np.ndarray, device=DEFAULT_DEVICE, top_m: int | None = None):
-        if top_m is not None and top_m < 1:
-            raise ValueError(f"top_m must be at least 1, got {top_m}")
-        self.top_m = top_m
+    def __init__(self, chain_gates: np.ndarray, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         self.gates64 = chain_gates_from_numpy(chain_gates, self.device)
         self.gates32 = self.gates64.to(torch.complex64)
@@ -63,22 +54,11 @@ class ChainSolver:
         """x0s (B, R, n) f64, tgt (B, 4, 4) complex128 -> (x (B, n) f64,
         certified square cost (B,) f64) of the best restart per target."""
         B, R, n = x0s.shape
-        M = R if self.top_m is None else self.top_m
-        if M > R:
-            raise ValueError(f"top_m = {M} exceeds the {R} restarts per target")
-        t32 = tgt.to(torch.complex64)
-        lanes_t = t32.repeat_interleave(R, dim=0).contiguous()
-        x0 = x0s.reshape(B * R, n).float().contiguous()
-        if self.top_m is None:
-            xs = ck.adam_chain(x0, lanes_t, self.gates32, self.sched)
-        else:  # the M restarts of smallest cost per target
-            xs, fa = ck.adam_chain(x0, lanes_t, self.gates32, self.sched, with_cost=True)
-            sel = torch.topk(-fa.view(B, R), M, dim=1).indices
-            xs = torch.gather(xs.view(B, R, n), 1, sel[:, :, None].expand(B, M, n)).reshape(B * M, n)
-            lanes_t = t32.repeat_interleave(M, dim=0).contiguous()
-        xs, fs = ck.lm_chain(xs, lanes_t, self.gates32)
-        best = torch.argmin(fs.view(B, M), dim=1)
-        xb = xs.view(B, M, n)[torch.arange(B, device=xs.device), best]
+        t32 = tgt.to(torch.complex64).repeat_interleave(R, dim=0).contiguous()
+        xs = ck.adam_chain(x0s.reshape(B * R, n).float().contiguous(), t32, self.gates32, self.sched)
+        xs, fs = ck.lm_chain(xs, t32, self.gates32)
+        best = torch.argmin(fs.view(B, R), dim=1)
+        xb = xs.view(B, R, n)[torch.arange(B, device=xs.device), best]
         return self.polish_cert(xb.double().contiguous(), tgt)
 
     __call__ = solve

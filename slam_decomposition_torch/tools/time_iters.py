@@ -16,7 +16,6 @@ timed by running this module from that tree in the same command.
 from __future__ import annotations
 
 import argparse
-import math
 import statistics
 import subprocess
 import sys
@@ -41,10 +40,8 @@ def median_ms(fn, reps: int) -> float:
 
 
 def main(argv) -> int:
-    from slam_decomposition_torch.models import gates
-    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
     from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
 
     ap = argparse.ArgumentParser(description="times of lm_chain and polish_chain by iteration count")
     ap.add_argument("--lanes", type=int, nargs="*", default=[], help="further polish lane counts")
@@ -57,23 +54,15 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     for k in (2, 3):
-        a = build_ansatz(cycle_gates([gates.SQISWAP], k))
-        g64 = torch.as_tensor(a.chain_gates).to(dev)
-        g32 = g64.to(torch.complex64)
         for lanes in [CHUNK, *args.lanes]:
-            T = torch.as_tensor(haar_sample(lanes, seed=1000 + k)).to(dev)
-            t32 = T.to(torch.complex64).repeat_interleave(RESTARTS, 0).contiguous()
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(k)
-            x0 = (torch.rand((lanes * RESTARTS, a.n_params), generator=gen, device=dev) * (2 * math.pi)).contiguous()
-            xa = ck.adam_chain(x0, t32, g32, ck.adam_schedule(device=dev))
+            g64, g32, T, t32, x0, sched = kernel_inputs(k, lanes, RESTARTS, dev).values()
+            xa = ck.adam_chain(x0, t32, g32, sched)
             if lanes == CHUNK:
                 ms = [median_ms(lambda: ck.lm_chain(xa, t32, g32, i), args.reps) for i in range(ck.LM32_ITERS + 1)]
                 print(f"lm_chain k={k} L={len(xa)} ms at 0..{ck.LM32_ITERS} iterations: "
                       + " ".join(f"{m:.3f}" for m in ms))
             xl, fl = ck.lm_chain(xa, t32, g32)
-            best = torch.argmin(fl.view(lanes, RESTARTS), dim=1)
-            xb = xl.view(lanes, RESTARTS, -1)[torch.arange(lanes, device=dev), best].double().contiguous()
+            xb = best_restart(xl, fl, RESTARTS)
             ms = [median_ms(lambda: ck.polish_chain(xb, T, g64, i), args.reps) for i in range(ck.LM_ITERS + 1)]
             print(f"polish_chain k={k} L={lanes} ms at 0..{ck.LM_ITERS} iterations: " + " ".join(f"{m:.3f}" for m in ms))
     return 0

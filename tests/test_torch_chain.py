@@ -75,6 +75,48 @@ def test_plain_adam_with_cost_matches_jax_kernel_with_cost():
 
 
 @pytest.mark.parametrize("k", [2, 3])
+def test_plain_adam_with_cost_is_the_cost_of_the_default_x(k):
+    """On CPU tensors the wrapper's with_cost returns the x it returns
+    without the flag, and the f32 square cost of that x, after the full
+    100-step schedule."""
+    _, _, T, x0, g64 = _setup(k, 6)
+    x32, T32, g32 = torch.as_tensor(x0, dtype=torch.float32), torch.as_tensor(T).to(torch.complex64), g64.to(torch.complex64)
+    x, cost = ck.adam_chain(x32, T32, g32, ck.adam_schedule(100), with_cost=True)
+    assert torch.equal(x, ck.adam_chain(x32, T32, g32, ck.adam_schedule(100)))
+    assert cost.shape == (L,) and cost.dtype == torch.float32
+    assert torch.equal(cost, ck.square_cost(x, T32, g32))
+    # Adam has lowered the cost of most lanes
+    assert (cost < ck.square_cost(x32, T32, g32)).float().mean().item() >= 0.9
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_kernel_inputs_are_seeded_at_the_solver_shapes(k):
+    """The set-up shared by the card scripts: same seeds, same data; shapes
+    and types as the wrappers ask for them."""
+    from slam_decomposition_torch.tools.inputs import kernel_inputs
+
+    a, b = kernel_inputs(k, 8, 4, "cpu"), kernel_inputs(k, 8, 4, "cpu")
+    assert all(torch.equal(a[key], b[key]) for key in a)
+    n = 6 * (k + 1)
+    assert a["x0"].shape == (32, n) and a["x0"].dtype == torch.float32
+    assert 0.0 <= a["x0"].min().item() and a["x0"].max().item() < 2 * np.pi + 1e-6
+    assert a["T"].shape == (8, 4, 4) and a["T"].dtype == torch.complex128
+    assert torch.equal(a["lanes_t"][4:8], a["T"][1].to(torch.complex64).expand(4, 4, 4))
+    assert a["g64"].shape == (k, 4, 4) and a["g32"].dtype == torch.complex64
+    x, f = ck.lm_chain(a["x0"], a["lanes_t"], a["g32"], 1)  # the wrappers take them as they are
+    assert x.shape == a["x0"].shape and f.shape == (32,)
+
+
+def test_best_restart_takes_the_smallest_residual_per_target():
+    from slam_decomposition_torch.tools.inputs import best_restart
+
+    xl = torch.arange(24, dtype=torch.float32).view(6, 4)  # 2 targets x 3 restarts
+    fl = torch.tensor([3.0, 1.0, 2.0, 0.5, 4.0, 0.7])
+    got = best_restart(xl, fl, 3)
+    assert got.dtype == torch.float64 and torch.equal(got, xl[[1, 3]].double())
+
+
+@pytest.mark.parametrize("k", [2, 3])
 def test_plain_lm_matches_jax_f32_lm(k):
     ja, js, T, x0, g64 = _setup(k, 5)
     T32 = torch.as_tensor(T).to(torch.complex64)

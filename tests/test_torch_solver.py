@@ -44,60 +44,29 @@ def test_solve_certifies_the_same_targets_as_jax(k):
     assert (solver.certify(xp, torch.as_tensor(T)).numpy()[lt <= 1e-10] <= 1e-10).all()
 
 
-@pytest.mark.parametrize("k", [2, 3])
-def test_top_m_solve_certifies_the_same_targets_as_jax(k):
-    """top_m=2: both solvers rank the restarts by their square cost after
-    Adam and run the f32 LM on the best two per target. Compared as the flat
-    solve above: certified verdicts at 1e-10 with at most 1 flip of 16 (0
-    measured), and certificates that are true f64 costs within 1e-13."""
-    ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], k))
-    T = haar_sample(B, seed=200 + k)
-    x0 = np.random.default_rng(10 + k).uniform(0, 2 * np.pi, (B, R, ja.n_params))
-    js = jax.jit(jmake_solver(ja.eval_fn, ja.n_params, chain_gates=ja.chain_gates, adam_backend="xla", top_m=2))
-    _, lj = js(jnp.asarray(x0), jcplx.from_numpy(T))
-    solver = make_solver(ja.chain_gates, device="cpu", top_m=2)
-    xt, lt = solver.solve(torch.as_tensor(x0), torch.as_tensor(T))
-    lj, lt = np.asarray(lj), lt.numpy()
-    flips = int(((lj <= 1e-10) != (lt <= 1e-10)).sum())
-    assert flips <= 1, f"{flips} of {B} targets certified by only one solver"
-    assert (lt <= 1e-10).sum() >= B // 2
-    np.testing.assert_allclose(lt, solver.certify(xt, torch.as_tensor(T)).numpy(), atol=1e-13)
-    assert xt.shape == (B, ja.n_params) and xt.dtype == torch.float64
-
-
-def test_top_m_keeps_the_restarts_of_smallest_adam_cost(monkeypatch):
-    """The lanes handed to the f32 LM are, per target, the top_m restarts of
-    smallest square cost after Adam, in that order."""
+def test_solve_polishes_the_restart_of_smallest_lm_residual(monkeypatch):
+    """Every restart goes through Adam and the f32 LM; the polish gets, per
+    target, the restart whose ||r||^2 after the LM is smallest."""
     from slam_decomposition_torch.ops import chain_kernels as ck
 
     ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], 2))
     T = torch.as_tensor(haar_sample(4, seed=7))
     x0 = torch.as_tensor(np.random.default_rng(7).uniform(0, 2 * np.pi, (4, R, ja.n_params)))
-    solver = make_solver(ja.chain_gates, device="cpu", top_m=2)
+    solver = make_solver(ja.chain_gates, device="cpu")
     seen = {}
-    lm = ck.lm_chain
+    polish = ck.polish_chain
 
-    def spy(xs, tgt, gates):
-        seen["xs"], seen["tgt"] = xs, tgt
-        return lm(xs, tgt, gates)
+    def spy(x, tgt, gates):
+        seen["x"] = x
+        return polish(x, tgt, gates)
 
-    monkeypatch.setattr(ck, "lm_chain", spy)
+    monkeypatch.setattr(ck, "polish_chain", spy)
     solver.solve(x0, T)
     t32 = T.to(torch.complex64).repeat_interleave(R, dim=0).contiguous()
-    xa, fa = ck.adam_chain(x0.reshape(4 * R, -1).float().contiguous(), t32, solver.gates32, solver.sched, with_cost=True)
-    order = torch.argsort(fa.view(4, R), dim=1)[:, :2]
-    want = xa.view(4, R, -1)[torch.arange(4)[:, None], order]
-    assert torch.equal(seen["xs"].view(4, 2, -1), want)
-    assert torch.equal(seen["tgt"], T.to(torch.complex64).repeat_interleave(2, dim=0))
-
-
-@pytest.mark.parametrize("top_m", [0, R + 1])
-def test_top_m_outside_the_restarts_is_refused(top_m):
-    ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], 2))
-    with pytest.raises(ValueError):
-        solver = make_solver(ja.chain_gates, device="cpu", top_m=top_m)
-        solver.solve(torch.zeros((2, R, ja.n_params), dtype=torch.float64),
-                     torch.as_tensor(haar_sample(2, seed=1)))
+    xa = ck.adam_chain(x0.reshape(4 * R, -1).float().contiguous(), t32, solver.gates32, solver.sched)
+    xl, fl = ck.lm_chain(xa, t32, solver.gates32)
+    best = torch.argmin(fl.view(4, R), dim=1)
+    assert torch.equal(seen["x"], xl.view(4, R, -1)[torch.arange(4), best].double())
 
 
 def test_decompose_haar_certifies_every_target():
