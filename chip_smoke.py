@@ -35,8 +35,26 @@ Phases, one line each (more for the build report):
      after each of (a) and (b), the polish kernel against its plain version
      on the analytic init's seeds of each k-class (1275 / 32 and 79029 /
      20971 lanes), with phase 3's tolerances and outside the counted runs;
-  6. result: a JSON line of the kernels (launches summed over the main and
-     transpile runs), then the device line.
+  6. TemplateOptimizer API, counted like the main path (the README's first
+     quick-start with the port's import path): sqiSwap templates,
+     objective "square", spanning_range [2, 3], 5 restarts, on
+     haar_sample(100000, seed=456). The three kernels must run and the
+     general solver must not; a target solved at depth 2 must have monodromy
+     depth 2 or lie within 1e-4 of the depth-2 region; every reported loss <= 1e-10 is confirmed by the f64 cost of
+     its parameters; the success share must reach API_SUCCESS_MIN;
+  7. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
+     to 1000 targets (cycles 1, 2, 2, 3), the CNOT basis at depth 3 on
+     haar_sample(10000, seed=2), depths 4 and 5 on 500 Haar targets (4: the
+     kernels, 5: the general solver, by rule; the path of every depth is
+     printed), and the K = 1 and K = 4 kernel instances against their plain
+     versions with phase 3's limits;
+  8. general solver on the card: the reduced and Makhlin objectives at depth
+     3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
+     restarts), a free conversion-gain gate under bounds reaching CNOT at
+     depth 1 from 256 restarts, and the chain template forced through the
+     general solver against the kernel path from the same starts;
+  9. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 8), then the device line.
 
 Any failure exits non-zero before the result lines. There is no CPU path:
 without CUDA the script exits with status 1.
@@ -84,6 +102,22 @@ QFT_GATES_HOST = {"u1q": 5508, "riswap": 2722}
 QFT_GATES_BATCHED = {"u1q": 5356, "riswap": 2646}
 SYNTH_ATOL = 1e-10  # the host routine's trace-infidelity bar (transpile/kak.py)
 SYNTH_FALLBACK_MAX = 10  # host fallbacks allowed in the Haar batch (PERF.md)
+# the API, depth and general-solver phases (sizes here so that a rehearsal
+# on the CPU can shrink them; the limits' readings are in PERF.md)
+API_RESTARTS = 5  # the optimizer's default
+API_SUCCESS_MIN = 0.999  # share of the 100000 targets solved at <= 1e-10
+# A target within ~1e-5 of the depth-2 region has a depth-2 circuit at cost <=
+# 1e-10 (the cost is quadratic in the distance) although its exact depth is 3:
+# such a target may be solved at depth 2 if |c3| - (c1 - c2) in the folded
+# chamber, which the depth-2 region bounds by 0, is at most this
+API_BOUNDARY_SLACK = 1e-4
+DEPTH_TILE, DEPTH_CNOT_B, DEPTH_CNOT_MIN, DEPTH_DEEP_B, DEPTH_PARITY_TARGETS = 250, 10_000, 0.99, 500, 1000
+DEPTH_LEAST_MIN = 0.95  # share of a gate's copies solved at its least depth
+GENERAL_CLASS_B, GENERAL_CLASS_THRESH, GENERAL_CLASS_MIN = 10_000, 1e-9, 0.99
+GENERAL_LBFGS_B, GENERAL_LBFGS_MIN = 2000, 0.99
+GENERAL_V2_RESTARTS = 256
+GENERAL_CHAIN_B, GENERAL_VERDICT_FRAC = 2000, 0.99
+RANK_TIE_ATOL = 1e-4  # ||r||^2 of a converged restart after the f32 LM sits at ~1e-6 to 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -122,6 +156,7 @@ def phase_device():
 
 def phase_build():
     from slam_decomposition_torch.ops import _build
+    from slam_decomposition_torch.ops.chain_kernels import KERNEL_KS
 
     info = _build.build()
     print(f"[build] {info['seconds']:.1f} s nvcc -> {info['path'].name}")
@@ -134,11 +169,12 @@ def phase_build():
               f"{r.get('spill_loads')} B spill loads")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and r.get("stack_frame", 1 << 30) <= STACK_MAX,
               f"{name} spills or keeps arrays in local memory")
-    # Adam with and without the cost, the LM and the polish, each at k = 2, 3
-    check(len(regs) == 8, f"expected 8 kernel instances in the ptxas report, got {len(regs)}")
+    # Adam with and without the cost, the LM and the polish, each at k = 1..4
+    want = 4 * len(KERNEL_KS)
+    check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
     for name in REPLACES:
-        for k in (2, 3):
+        for k in KERNEL_KS:
             o = _build.occupancy(name, k)
             print(f"[build] occupancy {name}<{k}>: {o['blocks']} resident blocks x {o['threads']} threads = "
                   f"{o['warps']} warps per SM")
@@ -163,15 +199,17 @@ def bound_line(name, k, bound, ms):
     return bound
 
 
-def phase_parity():
+def phase_parity(stats, ks=(2, 3), targets=CHUNK):
+    """Each kernel's depth-k instance against its plain version at ``targets``
+    x RESTARTS lanes; fills stats[kernel] with max_abs_err and, per k, ms_k,
+    plain_ms_k and bound_k."""
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
     from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
-    stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
-    for k in (2, 3):
-        g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, CHUNK, RESTARTS, dev).values()
+    for k in ks:
+        g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, RESTARTS, dev).values()
 
         # Adam: f32 association order differs, and Adam's m/sqrt(v) step
         # amplifies it on lanes whose gradient components sit near zero
@@ -229,7 +267,6 @@ def phase_parity():
         fresh = fresh_iterations(ck.polish_chain, xb, T, g64, ck.LM_ITERS)
         print(f"[bound] polish_chain k={k}: {fresh:.3f} of {ck.LM_ITERS} iterations per lane rebuild J")
         st[f"bound_k{k}"] = bound_line("polish_chain", k, mfu.polish_launch(k, xb.shape[0], ck.LM_ITERS, fresh), ms)
-    return stats
 
 
 def polish_parity(label, x, T, g64):
@@ -427,6 +464,229 @@ def phase_transpile(card, main_rate):
     return total, max(err_a, err_b)
 
 
+class Counted:
+    """Runs callables with the kernels' launch counts and the general
+    solver's call count set to 0 just before and read just after, and sums
+    the kernels' launches over its runs."""
+
+    def __init__(self):
+        self.total = {name: 0 for name in REPLACES}
+
+    def __call__(self, fn):
+        from slam_decomposition_torch.ops import chain_kernels as ck
+        from slam_decomposition_torch.opt.gauss_newton import GeneralSolver
+
+        ck.reset_launch_counts()
+        GeneralSolver.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ck.launch_counts()
+        for name in self.total:
+            self.total[name] += got[name]
+        return out, wall, got, GeneralSolver.calls, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _sqiswap_basis():
+    from slam_decomposition_torch.models.gates import SQISWAP
+    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+
+    return lambda k: build_ansatz(cycle_gates([SQISWAP], k))
+
+
+def certified_share(basis, res, U, dev):
+    """The share of targets whose reported loss is at or under THRESH and is
+    confirmed by the f64 square cost of the reported parameters."""
+    from slam_decomposition_torch.opt.costs import square_cost as cost
+
+    T = torch.as_tensor(U).to(dev)
+    ok = np.zeros(len(U), dtype=bool)
+    for k in np.unique(res.cycles[res.cycles > 0]):
+        a = basis(int(k))
+        idx = np.where(res.cycles == k)[0]
+        x = torch.as_tensor(res.params[idx, : a.n_params]).to(dev)
+        true = cost(a.eval_fn(x), T[torch.as_tensor(idx, device=dev)]).cpu().numpy()
+        claimed = res.loss[idx]
+        check((np.abs(true - claimed)[claimed <= THRESH] <= CERT_ATOL).all(),
+              f"depth {k}: a reported loss <= {THRESH:g} is not the f64 cost of its parameters")
+        ok[idx] = (claimed <= THRESH) & (true <= THRESH + CERT_ATOL)
+    return ok.mean()
+
+
+def phase_api(card, counted):
+    """The README's first quick-start on the card at full width."""
+    from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.ops.weyl import c1c2c3
+    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.samplers import haar_sample
+
+    basis = _sqiswap_basis()
+    U = haar_sample(B, seed=SEED)
+    warm = TemplateOptimizer(basis, objective="square", spanning_range=[2, 3], override_fail=True)
+    warm.approximate_from_distribution(haar_sample(1024, seed=SEED + 1))
+    opt = TemplateOptimizer(basis, objective="square", spanning_range=[2, 3], override_fail=True)
+    check(opt.training_restarts == API_RESTARTS, f"default restarts {opt.training_restarts} != {API_RESTARTS}")
+    res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
+    ks = np.maximum(monodromy_ks_batch(load_coverage(gates.cg_sqiswap()), U, torch.device("cuda")), 2)
+    share = float(res.success.mean())
+    certified = certified_share(basis, res, U, torch.device("cuda"))
+    late = int(((res.cycles == 3) & (ks == 2)).sum())  # depth-2 targets whose restarts all missed at depth 2
+    early = np.where((res.cycles == 2) & (ks == 3) & res.success)[0]  # depth 3, yet a depth-2 circuit at <= 1e-10
+    c = c1c2c3(torch.as_tensor(U[early]).to(torch.device("cuda"))).cpu().numpy().reshape(-1, 3)
+    outside = np.abs(c[:, 2]) - (np.minimum(c[:, 0], 1.0 - c[:, 0]) - c[:, 1])  # > 0: outside the depth-2 region
+    hist = _hist(res.cycles)
+    print(f"[api] paths {opt.solver_paths}; launches {launches}; general-solver calls {general}; cycles {hist} "
+          f"(monodromy {_hist(ks)}: {late} depth-2 targets solved at depth 3, {len(early)} depth-3 targets solved at depth 2, "
+          f"at most {outside.max(initial=0.0):.2e} outside the depth-2 region, allowed {API_BOUNDARY_SLACK:g}); "
+          f"success {int(res.success.sum())}/{B} = {share:.5f} (need >= {API_SUCCESS_MIN}), confirmed in f64 {certified:.5f}; "
+          f"worst loss {res.loss.max():.3e}")
+    print(f"[api] {card}: " + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items())
+          + f", call {wall:.3f} s -> {res.success.sum() / wall:.1f} targets/s; peak device memory {peak:.0f} MiB")
+    check(opt.solver_paths == {2: "kernels", 3: "kernels"}, f"paths {opt.solver_paths}")
+    check(all(v > 0 for v in launches.values()) and general == 0, f"launches {launches}, general calls {general}")
+    check(_hist(ks) == WANT_HIST, f"monodromy histogram {_hist(ks)} != {WANT_HIST}")
+    check((outside <= API_BOUNDARY_SLACK).all(),
+          f"a target {outside.max(initial=0.0):.2e} outside the depth-2 region is reported solved at depth 2")
+    check(set(res.cycles[res.success]) <= {2, 3}, "a solved target's cycles is neither 2 nor 3")
+    check(share >= API_SUCCESS_MIN and certified == share, f"success share {share}, confirmed {certified}")
+    return share
+
+
+def phase_depth(card, counted, stats):
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.samplers import haar_sample
+
+    dev = torch.device("cuda")
+    basis = _sqiswap_basis()
+    # (a) early exit over depths 1, 2, 3
+    zoo = np.stack([g.to_numpy() for g in (gates.SQISWAP, gates.ISWAP, gates.CNOT, gates.SWAP)])
+    U = np.tile(zoo, (DEPTH_TILE, 1, 1))
+    opt = TemplateOptimizer(basis, spanning_range=[1, 2, 3], override_fail=True)
+    res, wall, launches, general, _ = counted(lambda: opt.approximate_from_distribution(U))
+    cyc = res.cycles.reshape(DEPTH_TILE, 4)
+    print(f"[depth] sqiswap/iswap/cnot/swap x {DEPTH_TILE}: cycles {[_hist(cyc[:, j]) for j in range(4)]}, success "
+          f"{res.success.mean():.5f}, paths {opt.solver_paths}, launches {launches}, general calls {general}, {wall:.3f} s")
+    # 1, 2, 2, 3 are the least depths: no copy may be solved below its own, and
+    # a copy whose restarts all miss there (a few of sqiSwap's at depth 1) is
+    # solved one deeper
+    least = np.array([1, 2, 2, 3])
+    at_least = (cyc == least).mean(axis=0)
+    check(res.success.all() and (cyc >= least).all() and (at_least >= DEPTH_LEAST_MIN).all(),
+          f"cycles are not 1, 2, 2, 3: shares at the least depth {at_least}")
+    check(opt.solver_paths == {1: "kernels", 2: "kernels", 3: "kernels"} and general == 0, f"paths {opt.solver_paths}")
+    check(all(v >= 3 for v in launches.values()), f"launches {launches}: every depth launches every kernel")
+    certified_share(basis, res, U, dev)
+    # (b) the CNOT basis at depth 3
+    cnot = lambda k: build_ansatz(cycle_gates([gates.CNOT], k))  # noqa: E731
+    U = haar_sample(DEPTH_CNOT_B, seed=2)
+    opt = TemplateOptimizer(cnot, spanning_range=[3], override_fail=True)
+    res, wall, launches, general, _ = counted(lambda: opt.approximate_from_distribution(U))
+    share = certified_share(cnot, res, U, dev)
+    print(f"[depth] cnot basis k=3, haar {DEPTH_CNOT_B} (seed 2): success {share:.5f} (need >= {DEPTH_CNOT_MIN}), "
+          f"launches {launches}, {wall:.3f} s")
+    check(share >= DEPTH_CNOT_MIN and general == 0 and all(v > 0 for v in launches.values()), "cnot basis at depth 3")
+    # (c) depths 4 and 5: which path each takes, by rule
+    U = haar_sample(DEPTH_DEEP_B, seed=7)
+    for k, want in ((4, "kernels"), (5, "general")):
+        opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
+        res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
+        share = certified_share(basis, res, U, dev)
+        print(f"[depth] sqiswap k={k}, haar {DEPTH_DEEP_B}: path {opt.solver_paths[k]} (by rule: n = {6 * (k + 1)} "
+              f"parameters {'<=' if k < 5 else '>'} 32 threads), success {share:.5f}, launches {launches}, "
+              f"general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
+        check(opt.solver_paths[k] == want and share >= DEPTH_CNOT_MIN, f"depth {k}: path {opt.solver_paths[k]}, success {share}")
+        check((general == 0 and all(v > 0 for v in launches.values())) if k == 4 else
+              (general > 0 and not any(launches.values())), f"depth {k}: launches {launches}, general calls {general}")
+    # (d) the new instances against their plain versions, outside the counted runs
+    phase_parity(stats, ks=(1, 4), targets=DEPTH_PARITY_TARGETS)
+
+
+def phase_general(card, counted):
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models.templates import build_ansatz, build_ansatz_v2, cycle_gates
+    from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver
+    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+
+    dev = torch.device("cuda")
+    basis = _sqiswap_basis()
+    # (a) the local-equivalence objectives: Adam + LM on the Makhlin residual
+    U = haar_sample(GENERAL_CLASS_B, seed=4)
+    for obj in ("square_reduced", "makhlin_functional"):
+        opt = TemplateOptimizer(basis, objective=obj, spanning_range=[3], success_threshold=GENERAL_CLASS_THRESH,
+                                override_fail=True)
+        res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
+        share = float(res.success.mean())
+        print(f"[general] {card}: {obj}, sqiswap k=3, haar {GENERAL_CLASS_B}: success {share:.5f} at <= "
+              f"{GENERAL_CLASS_THRESH:g} (need >= {GENERAL_CLASS_MIN}), path {opt.solver_paths[3]}, kernel launches "
+              f"{launches}, general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
+        check(opt.solver_paths == {3: "general"} and general > 0 and not any(launches.values()), f"{obj}: wrong path")
+        check(share >= GENERAL_CLASS_MIN and np.isfinite(res.loss).all(), f"{obj}: success {share}")
+    # (b) the batched L-BFGS
+    cnot = lambda k: build_ansatz(cycle_gates([gates.CNOT], k))  # noqa: E731
+    U = haar_sample(GENERAL_LBFGS_B, seed=2)
+    opt = TemplateOptimizer(cnot, spanning_range=[3], method="lbfgs", override_fail=True)
+    res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
+    share = certified_share(cnot, res, U, dev)
+    st = opt.lbfgs_stats[0]
+    print(f"[general] {card}: lbfgs, cnot k=3, haar {GENERAL_LBFGS_B} x {opt.training_restarts} restarts: success "
+          f"{share:.5f} (need >= {GENERAL_LBFGS_MIN}), {st['evals']} batched evaluations, {st['syncs']} host reads, "
+          f"{st['iters']} lane-iterations, {wall:.3f} s, peak {peak:.0f} MiB")
+    check(opt.solver_paths == {3: "lbfgs"} and general == 0 and not any(launches.values()), "lbfgs: wrong path")
+    check(share >= GENERAL_LBFGS_MIN, f"lbfgs: success {share}")
+    # (c) a parameterized gate under bounds
+    bounds = (np.zeros(2), np.full(2, np.pi / 2))
+    ansatz = build_ansatz_v2(lambda q, dtype: ham.conversion_gain_u(q[..., 0], q[..., 1], t=1.0, dtype=dtype),
+                             n_gate_params=2, k=1, gate_bounds=bounds)
+    opt = TemplateOptimizer(ansatz, training_restarts=GENERAL_V2_RESTARTS, override_fail=True)
+    res, wall, launches, general, _ = counted(lambda: opt.approximate_target_U(gates.CNOT.to_numpy()))
+    q = res.params[0, ansatz.n_params_1q:]
+    print(f"[general] {card}: free conversion-gain gate -> CNOT at k=1, {GENERAL_V2_RESTARTS} restarts under bounds: loss "
+          f"{res.loss[0]:.3e}, (gc, gg) = ({q[0]:.6f}, {q[1]:.6f}), path {opt.solver_paths[1]}, {wall:.3f} s")
+    check(res.success.all() and opt.solver_paths == {1: "general"} and general > 0, f"v2: loss {res.loss}")
+    check((q >= -1e-12).all() and (q <= np.pi / 2 + 1e-12).all(), f"v2: gate parameters {q} leave their bounds")
+    # (d) the chain template forced through the general solver, against the
+    # kernel path from the same starts
+    U = haar_sample(GENERAL_CHAIN_B, seed=9)
+    ks = np.maximum(sqiswap_count_batch(U, device=dev), 2)
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    for k in (2, 3):
+        a = basis(k)
+        T = torch.as_tensor(U[ks == k]).to(dev)
+        x0 = (torch.rand((T.shape[0], API_RESTARTS, a.n_params), generator=gen, dtype=torch.float64) * (2 * math.pi)).to(dev)
+        kernel, general_solver = ChainSolver(a.chain_gates), GeneralSolver(a.eval_fn, a.n_params)
+        (xk, fk), wall_k, launches, _, _ = counted(lambda: kernel.solve(x0, T))
+        (xg, fg), wall_g, _, general, peak = counted(lambda: general_solver.solve(x0, T))
+        verdict = ((fk <= THRESH) == (fg <= THRESH)).double().mean().item()
+        both = ((fk <= THRESH) & (fg <= THRESH)).double().mean().item()
+        # which restart each path ranks best (outside the counted runs). Where
+        # several restarts converge they tie at the f32 floor and either
+        # ranking picks among them by rounding, so the general path's winner
+        # must be one the kernel path ranks within that floor of its own
+        _, sk = kernel.rank(x0, T)
+        _, sg = general_solver.rank(x0, T)
+        best_k, best_g = sk.argmin(dim=1), sg.argmin(dim=1)
+        rows = torch.arange(T.shape[0], device=dev)
+        same = (best_k == best_g).double().mean().item()
+        tied = (sk[rows, best_g] <= sk[rows, best_k] + RANK_TIE_ATOL).double().mean().item()
+        print(f"[general] {card}: chain k={k}, {T.shape[0]} targets x {API_RESTARTS} restarts, kernel path against "
+              f"general path from the same starts: certified {(fk <= THRESH).double().mean().item():.5f} / "
+              f"{(fg <= THRESH).double().mean().item():.5f}, both {both:.5f}, same verdict {verdict:.5f} (need >= "
+              f"{GENERAL_VERDICT_FRAC}), same best restart {same:.5f}, or one tied with it within {RANK_TIE_ATOL:g} "
+              f"in ||r||^2 {tied:.5f} (need >= {GENERAL_VERDICT_FRAC}); {wall_k:.3f} s ({launches}) against "
+              f"{wall_g:.3f} s ({general} general call), peak {peak:.0f} MiB")
+        check(verdict >= GENERAL_VERDICT_FRAC and tied >= GENERAL_VERDICT_FRAC, f"chain k={k}: the two paths disagree")
+        check(all(v == 1 for v in launches.values()) and general == 1, f"chain k={k}: launches {launches}, general {general}")
+        check((general_solver.certify(xg, T)[fg <= THRESH] <= THRESH + CERT_ATOL).all(), "general path's cost is not its x's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
@@ -436,11 +696,17 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         card = phase_device()
         phase_build()
-        stats = phase_parity()
+        stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
+        phase_parity(stats)
         counts, main_rate = phase_main_path(card)
         t_counts, t_polish_err = phase_transpile(card, main_rate)
-        counts = {name: counts[name] + t_counts[name] for name in counts}
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
+        counted = Counted()
+        phase_api(card, counted)
+        phase_depth(card, counted, stats)
+        phase_general(card, counted)
+        print(f"[result] launches of the API, depth and general-solver runs: {counted.total}")
+        counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
@@ -458,10 +724,18 @@ def main() -> int:
             "bound_by": stats[name]["bound_k2"]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a per-lane solve
             "flops": stats[name]["bound_k2"]["flops"],
-            "ms_k3": stats[name]["ms_k3"],
-            "plain_ms_k3": stats[name]["plain_ms_k3"],
-            "bound_ms_k3": stats[name]["bound_k3"]["bound_ms"],
-            "flops_k3": stats[name]["bound_k3"]["flops"],
+            # the other instances: k = 3 at the main path's lanes, k = 1 and 4
+            # at the depth phase's (DEPTH_PARITY_TARGETS x RESTARTS)
+            **{
+                f"{key}_k{k}": val
+                for k in (3, 1, 4)
+                for key, val in (
+                    ("ms", stats[name][f"ms_k{k}"]),
+                    ("plain_ms", stats[name][f"plain_ms_k{k}"]),
+                    ("bound_ms", stats[name][f"bound_k{k}"]["bound_ms"]),
+                    ("flops", stats[name][f"bound_k{k}"]["flops"]),
+                )
+            },
         }
         for name in REPLACES
     ]

@@ -1,5 +1,5 @@
-"""Configuration: where the shared data estate lives, and which device the
-entry points run on.
+"""Configuration: where the shared data estate lives, which device the
+entry points run on, and the optimizer's defaults.
 
 The cached coverage sets are the JAX package's own files under
 ``slam_decomposition_tpu/data/``. They are read from disk in place (never
@@ -28,6 +28,17 @@ def data_dir() -> pathlib.Path:
 def build_dir() -> pathlib.Path:
     """Where the CUDA kernels are compiled to (listed in .gitignore)."""
     return REPO_ROOT / "build" / "slam_torch_kernels"
+
+
+def _env(name: str, default, cast):
+    v = os.environ.get(name)
+    return cast(v) if v is not None else default
+
+
+# the optimizer's defaults, under the JAX package's environment names
+success_threshold: float = _env("SLAM_SUCCESS_THRESHOLD", 1e-10, float)  # a target counts as solved at or under it
+training_restarts: int = _env("SLAM_TRAINING_RESTARTS", 5, int)  # multi-start restarts per target
+max_opt_iters: int = _env("SLAM_MAX_OPT_ITERS", 400, int)  # L-BFGS iterations per restart
 
 
 DEFAULT_DEVICE = "cuda"  # the entry points' device unless the caller names another

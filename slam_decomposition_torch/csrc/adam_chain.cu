@@ -34,11 +34,13 @@ constexpr int kLanes = 32;  // lanes per block
 constexpr int kThreads = kLanes * slam::kAdamTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
 // at 96 registers (20 warps per SM) without spills; 6 (80) spills. The
-// instance with the cost spills at 96 (8 / 4 B) and takes 4 (128).
-constexpr int kMinBlocks = 5, kMinBlocksCost = 4;
+// instance with the cost spills at 96 (8 / 4 B) and takes 4 (128), and so
+// does the K = 4 instance (8 gradient and Adam-state slots a thread: 4 / 8 B
+// of spills at 96, 107 registers used at 4).
+template <int K, bool Cost> constexpr int kMinBlocks = Cost || K >= 4 ? 4 : 5;
 
 template <int K, bool Cost>
-__global__ void __launch_bounds__(kThreads, Cost ? kMinBlocksCost : kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K, Cost>)
     adam_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                       const float* __restrict__ gates, const float* __restrict__ sched,
                       int iters, int L, float* __restrict__ xout, float* __restrict__ fout) {
@@ -59,12 +61,20 @@ template <int K> cudaError_t occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, adam_chain_kernel<K, false>, kThreads, 0);
 }
 
+// the instance with the cost when fout is given, else the default one
+template <int K>
+void launch(dim3 grid, dim3 block, cudaStream_t s, const float* a, const float* t, const float* g,
+            const float* sc, int iters, int L, float* o, float* f) {
+  if (f) adam_chain_kernel<K, true><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+  else adam_chain_kernel<K, false><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+}
+
 }  // namespace
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64,
 // sched (iters, 3) f32 -> xout (L, 6(k+1)) f32 and, unless fout is null,
 // fout (L,) f32, the square cost at xout. Launches on `stream` and returns
-// the launch's error code; k must be 2 or 3.
+// the launch's error code; k must be 1, 2, 3 or 4.
 extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const void* gates,
                                        const void* sched, int iters, int k, int L,
                                        void* xout, void* fout, void* stream) {
@@ -79,10 +89,10 @@ extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const vo
   const float* sc = static_cast<const float*>(sched);
   float* o = static_cast<float*>(xout);
   float* f = static_cast<float*>(fout);
-  if (k == 2 && f) adam_chain_kernel<2, true><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
-  else if (k == 2) adam_chain_kernel<2, false><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
-  else if (k == 3 && f) adam_chain_kernel<3, true><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
-  else if (k == 3) adam_chain_kernel<3, false><<<grid, block, 0, s>>>(a, t, g, sc, iters, L, o, f);
+  if (k == 1) launch<1>(grid, block, s, a, t, g, sc, iters, L, o, f);
+  else if (k == 2) launch<2>(grid, block, s, a, t, g, sc, iters, L, o, f);
+  else if (k == 3) launch<3>(grid, block, s, a, t, g, sc, iters, L, o, f);
+  else if (k == 4) launch<4>(grid, block, s, a, t, g, sc, iters, L, o, f);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -91,8 +101,10 @@ extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const vo
 // and its threads per block
 extern "C" cudaError_t slam_adam_chain_occupancy(int k, int* blocks, int* threads) {
   *threads = kThreads;
+  if (k == 1) return occupancy<1>(blocks);
   if (k == 2) return occupancy<2>(blocks);
   if (k == 3) return occupancy<3>(blocks);
+  if (k == 4) return occupancy<4>(blocks);
   return cudaErrorInvalidValue;
 }
 

@@ -33,7 +33,8 @@ namespace {
 constexpr int kLanes = 4;  // lanes (warps) per block
 constexpr int kThreads = kLanes * slam::kLmTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
-// at 96 registers (20 warps per SM) without spills; 6 (80) spills
+// at 96 registers (20 warps per SM) without spills at every K (1..4); 6
+// (80) spills
 constexpr int kMinBlocks = 5;
 
 template <int K>
@@ -59,7 +60,7 @@ template <int K> cudaError_t occupancy(int* blocks) {
 }  // namespace
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64
-// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 2 or 3.
+// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, 2, 3 or 4.
 extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void* gates,
                                      int iters, int k, int L, void* xout, void* fout,
                                      void* stream) {
@@ -73,8 +74,10 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
   const float* g = static_cast<const float*>(gates);
   float* xo = static_cast<float*>(xout);
   float* fo = static_cast<float*>(fout);
-  if (k == 2) lm_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  if (k == 1) lm_chain_kernel<1><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 2) lm_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else if (k == 3) lm_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 4) lm_chain_kernel<4><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -83,7 +86,9 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
 // threads per block
 extern "C" cudaError_t slam_lm_chain_occupancy(int k, int* blocks, int* threads) {
   *threads = kThreads;
+  if (k == 1) return occupancy<1>(blocks);
   if (k == 2) return occupancy<2>(blocks);
   if (k == 3) return occupancy<3>(blocks);
+  if (k == 4) return occupancy<4>(blocks);
   return cudaErrorInvalidValue;
 }

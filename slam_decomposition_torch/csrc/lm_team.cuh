@@ -185,7 +185,12 @@ template <int K, class Team>
 SLAM_HD void lm_residual_f64(Team& tm, LmWs<double, K>& ws, const double* xs, const GateNz<double>* G,
                              float* out) {
   SLAM_EACH(tm, t) {
-    if (t < 4 * LmWs<double, K>::NT) u3_trig_pair(xs + 3 * (t / 4), t % 4, ws.trigd[t / 4]);
+    constexpr int kPairs = 4 * LmWs<double, K>::NT;
+    if constexpr (kPairs <= kLmTeam) {
+      if (t < kPairs) u3_trig_pair(xs + 3 * (t / 4), t % 4, ws.trigd[t / 4]);
+    } else {  // K >= 4: more pairs than threads
+      for (int s = t; s < kPairs; s += kLmTeam) u3_trig_pair(xs + 3 * (s / 4), s % 4, ws.trigd[s / 4]);
+    }
   }
   tm.sync();
   SLAM_EACH(tm, t) {

@@ -40,11 +40,13 @@ constexpr int kLanes = 4;  // lanes (warps) per block
 constexpr int kThreads = kLanes * slam::kLmTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
 // at 96 registers (20 warps per SM) and still builds without spills; at 4
-// (118 / 125 registers used, 16 warps) the kernel ran 3-6% slower on an H100
-constexpr int kMinBlocks = 5;
+// (118 / 125 registers used, 16 warps) the kernel ran 3-6% slower on an H100.
+// At K = 4 (a row of A has 30 entries) it spills 12 B at 96 and takes 4
+// (121 registers used, 16 warps).
+template <int K> constexpr int kMinBlocks = K >= 4 ? 4 : 5;
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
     polish_chain_kernel(const double* __restrict__ x0, const double* __restrict__ tgt,
                         const double* __restrict__ gates, int iters, int L,
                         double* __restrict__ xout, double* __restrict__ fout) {
@@ -70,7 +72,7 @@ template <int K> cudaError_t occupancy(int* blocks) {
 }  // namespace
 
 // x0 (L, 6(k+1)) f64, tgt (L, 4, 4) complex128, gates (k, 4, 4) complex128
-// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 2 or 3.
+// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, 2, 3 or 4.
 extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const void* gates,
                                          int iters, int k, int L, void* xout, void* fout,
                                          void* stream) {
@@ -84,8 +86,10 @@ extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const 
   const double* g = static_cast<const double*>(gates);
   double* xo = static_cast<double*>(xout);
   double* fo = static_cast<double*>(fout);
-  if (k == 2) polish_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  if (k == 1) polish_chain_kernel<1><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 2) polish_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else if (k == 3) polish_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 4) polish_chain_kernel<4><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -94,7 +98,9 @@ extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const 
 // threads per block
 extern "C" cudaError_t slam_polish_chain_occupancy(int k, int* blocks, int* threads) {
   *threads = kThreads;
+  if (k == 1) return occupancy<1>(blocks);
   if (k == 2) return occupancy<2>(blocks);
   if (k == 3) return occupancy<3>(blocks);
+  if (k == 4) return occupancy<4>(blocks);
   return cudaErrorInvalidValue;
 }

@@ -28,11 +28,12 @@ import torch
 
 from slam_decomposition_torch.models.templates import chain_unitary
 
-KERNEL_KS = (2, 3)  # chain depths the CUDA kernels are instantiated for
+# chain depths the CUDA kernels are instantiated for: n = 6(k+1) <= 32, one
+# row of A per thread of the LM's warp; deeper chains take the general solver
+KERNEL_KS = (1, 2, 3, 4)
 # the main path's schedule (JAX bench.py:88-91, pallas_chain.py:688-699)
 ADAM_ITERS, ADAM_LR, LM32_ITERS, LM_ITERS = 100, 0.1, 8, 6
 CG_EXTRA_ITERS = 8  # CG runs n + 8 iterations (JAX gauss_newton._spd_solve)
-F32_TINY = float(np.finfo(np.float32).tiny)  # CG denominator guard
 LAM0, LAM_UP, LAM_DOWN, LAM_MIN, LAM_MAX = 1e-3, 8.0, 0.3, 1e-14, 1e3
 FOUR_PI = 4.0 * math.pi
 
@@ -40,15 +41,16 @@ FOUR_PI = 4.0 * math.pi
 # ---------------------------------------------------------------- plain math
 
 
-def adam_schedule(iters: int = ADAM_ITERS, device="cpu") -> torch.Tensor:
+def adam_schedule(iters: int = ADAM_ITERS, device="cpu", lr: float = ADAM_LR) -> torch.Tensor:
     """(iters, 3) f32 rows [1/bias1, 1/bias2, lr] per Adam step, lr starting
-    at ADAM_LR and halving every iters/3 steps (JAX pallas_chain.py:688-699)."""
+    at ``lr`` and halving every iters/3 steps (JAX pallas_chain.py:688-699,
+    gauss_newton.py:355-357)."""
     it = np.arange(iters, dtype=np.float64)
     sched = np.stack(
         [
             1.0 / (1.0 - 0.9 ** (it + 1.0)),
             1.0 / (1.0 - 0.999 ** (it + 1.0)),
-            ADAM_LR * 0.5 ** (it / (iters / 3.0)),
+            lr * 0.5 ** (it / (iters / 3.0)),
         ],
         axis=1,
     )
@@ -78,8 +80,9 @@ def phase_residual(x: torch.Tensor, tgt: torch.Tensor, gates: torch.Tensor) -> t
     return torch.cat([d.real.flatten(-2), d.imag.flatten(-2)], dim=-1)
 
 
-def _jacobian_f32(x: torch.Tensor, tgt32: torch.Tensor, gates32: torch.Tensor) -> torch.Tensor:
-    """(L, 32, n) f32 Jacobian of the phase residual by forward mode.
+def jacobian(fn, x: torch.Tensor) -> torch.Tensor:
+    """(L, m, n) Jacobian of a per-lane function fn: (L, n) -> (L, m) by
+    forward mode.
 
     This is what ``torch.func.jacfwd`` does per lane (one JVP per one-hot
     tangent, vmapped over the tangents), applied to all lanes at once: the
@@ -91,72 +94,117 @@ def _jacobian_f32(x: torch.Tensor, tgt32: torch.Tensor, gates32: torch.Tensor) -
     basis = torch.eye(n, dtype=x.dtype, device=x.device)[:, None, :].expand(n, *x.shape)
 
     def column(v):
-        return torch.func.jvp(lambda x1: phase_residual(x1, tgt32, gates32), (x,), (v,))[1]
+        return torch.func.jvp(fn, (x,), (v,))[1]
 
     return torch.func.vmap(column)(basis).permute(1, 2, 0)
 
 
 def _cg(A: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """Batched CG on SPD (L, n, n) systems, fixed iteration count."""
+    """Batched CG on SPD (L, n, n) systems, fixed iteration count. The
+    guards are the dtype's smallest normal number: a smaller one would
+    underflow in f32 and give 0/0 the moment CG converges exactly."""
+    tiny = torch.finfo(b.dtype).tiny
     x = torch.zeros_like(b)
     r = b
     p = b
     rs = (b * b).sum(-1)
     for _ in range(iters):
         Ap = (A @ p[..., None])[..., 0]
-        alpha = rs / torch.clamp_min((p * Ap).sum(-1), F32_TINY)
+        alpha = rs / torch.clamp_min((p * Ap).sum(-1), tiny)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * Ap
         rs_new = (r * r).sum(-1)
-        p = r + (rs_new / torch.clamp_min(rs, F32_TINY))[:, None] * p
+        p = r + (rs_new / torch.clamp_min(rs, tiny))[:, None] * p
         rs = rs_new
     return x
 
 
-def lm_chain_ref(x, tgt, gates, iters: int = LM32_ITERS):
-    """Plain mixed-precision LM (JAX gauss_newton.lm_one): the residual,
-    trial step and accept test in x's dtype (f32 for the ranking pass, f64
-    for the polish); J, normal equations and CG in f32. Returns (x, final
-    accepted ||r||^2)."""
+def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False):
+    """Mixed-precision Levenberg-Marquardt on per-lane residuals (JAX
+    gauss_newton.lm_one): ``res_fn(x)`` (L, n) -> (L, m) gives the residual,
+    the trial step and the accept test in x's dtype; ``res32_fn`` is the same
+    function on the f32 cast of x (and of its data), whose Jacobian, normal
+    equations and n + 8 CG iterations only steer (they run in the dtype that
+    ``res32_fn`` returns: f32 unless the template evaluates in f64 itself).
+    lam starts at 1e-3, x0.3 on an accepted step and x8 on a rejected one,
+    clipped to [1e-14, 1e3]; a NaN trial step is "not improved". ``project``
+    clamps a trial point into the bounds. Returns (x, final accepted
+    ||r||^2), and with ``history`` also the accepted ||r||^2 after each
+    iteration, (L, iters)."""
     n = x.shape[-1]
-    tgt32 = tgt.to(torch.complex64)
-    gates32 = gates.to(torch.complex64)
-    eye = torch.eye(n, dtype=torch.float32, device=x.device)
-    r = phase_residual(x, tgt, gates)
+    r = res_fn(x)
     f0 = (r * r).sum(-1)
     lam = torch.full_like(f0, LAM0)
+    hist = []
     for _ in range(iters):
-        J = _jacobian_f32(x.float(), tgt32, gates32)
+        J = jacobian(res32_fn, x.float())
         Jt = J.transpose(-2, -1)
-        A = Jt @ J + lam.float()[:, None, None] * eye
-        g = (Jt @ r.float()[..., None])[..., 0]
+        eye = torch.eye(n, dtype=J.dtype, device=x.device)
+        A = Jt @ J + lam.float().to(J.dtype)[:, None, None] * eye
+        g = (Jt @ r.float().to(J.dtype)[..., None])[..., 0]
         dx = _cg(A, -g, n + CG_EXTRA_ITERS)
         xn = x + dx.to(x.dtype)
-        rn = phase_residual(xn, tgt, gates)
+        if project is not None:
+            xn = project(xn)
+        rn = res_fn(xn)
         fn = (rn * rn).sum(-1)
-        # a NaN trial step is "not improved" (NaN < f0 is False)
-        imp = fn < f0
+        imp = fn < f0  # NaN < f0 is False
         lam = torch.where(imp, lam * LAM_DOWN, lam * LAM_UP).clamp(LAM_MIN, LAM_MAX)
         x = torch.where(imp[:, None], xn, x)
         r = torch.where(imp[:, None], rn, r)
         f0 = torch.where(imp, fn, f0)
+        if history:
+            hist.append(f0)
+    if history:
+        return x, f0, torch.stack(hist, dim=1) if hist else f0.new_zeros((x.shape[0], 0))
     return x, f0
 
 
-def adam_chain_ref(x0, tgt, gates, sched, with_cost: bool = False):
-    """Plain Adam: one step per schedule row, gradients by autograd. With
-    ``with_cost`` also the square cost at the final x."""
+def lm_chain_ref(x, tgt, gates, iters: int = LM32_ITERS):
+    """Plain mixed-precision LM on the chain's phase residual: the residual,
+    trial step and accept test in x's dtype (f32 for the ranking pass, f64
+    for the polish); J, normal equations and CG in f32. Returns (x, final
+    accepted ||r||^2)."""
+    tgt32 = tgt.to(torch.complex64)
+    gates32 = gates.to(torch.complex64)
+    return lm_loop(
+        lambda x1: phase_residual(x1, tgt, gates), lambda x1: phase_residual(x1, tgt32, gates32), x, iters
+    )
+
+
+def adam_loop(cost_fn, x0, sched, project=None, history: bool = False):
+    """Plain Adam on a per-lane cost ``cost_fn(x)`` (L, n) -> (L,): one step
+    per schedule row [1/bias1, 1/bias2, lr], gradients by reverse-mode
+    autograd of the summed cost (the lanes are independent), cast to x's
+    dtype; ``project`` clamps each new point into the bounds. With
+    ``history`` also the cost before each step, (L, iters) in x's dtype."""
     x = x0.clone()
     m = torch.zeros_like(x)
     v = torch.zeros_like(x)
+    hist = []
     for i in range(sched.shape[0]):
         xg = x.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(square_cost(xg, tgt, gates).sum(), xg)
+        f = cost_fn(xg)
+        (g,) = torch.autograd.grad(f.sum(), xg)
+        g = g.to(x.dtype)
         m = 0.9 * m + 0.1 * g
         v = 0.999 * v + 0.001 * (g * g)
         mhat = m * sched[i, 0]
         vhat = v * sched[i, 1]
         x = x - sched[i, 2] * mhat / (torch.sqrt(vhat) + 1e-8)
+        if project is not None:
+            x = project(x)
+        if history:
+            hist.append(f.detach().to(x.dtype))
+    if history:
+        return x, torch.stack(hist, dim=1) if hist else x.new_zeros((x.shape[0], 0))
+    return x
+
+
+def adam_chain_ref(x0, tgt, gates, sched, with_cost: bool = False):
+    """Plain Adam on the chain's square cost. With ``with_cost`` also the
+    square cost at the final x."""
+    x = adam_loop(lambda x1: square_cost(x1, tgt, gates), x0, sched)
     return (x, square_cost(x, tgt, gates)) if with_cost else x
 
 
@@ -200,7 +248,8 @@ def _check_lanes(x, tgt, gates, xdtype, cdtype):
 
 def _kernel_target(x, k):
     """True for a CUDA launch, False for the CPU's plain version; raises
-    for any other device and for depths without a kernel instance."""
+    for any other device and for depths without a kernel instance (the
+    solver routes those to its general path before it gets here)."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":

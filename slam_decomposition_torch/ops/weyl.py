@@ -1,6 +1,6 @@
 """Monodromy and Weyl-chamber coordinates of 2Q unitaries (JAX
-ops/weyl.py:46-120, 158-170, 205-250), all in f64 on native complex128
-tensors.
+ops/weyl.py:46-170, 205-250), all in f64 on native complex128
+tensors (the trace-only invariants in the dtype they are given).
 
 Conventions are the JAX package's: magic basis
 B = (1/sqrt2)[[1,0,0,i],[0,i,1,0],[0,i,-1,0],[1,0,0,-i]], m = M^T M with
@@ -20,6 +20,8 @@ import torch
 from slam_decomposition_torch.ops.eig import joint_diag
 
 _SQ2 = 1.0 / np.sqrt(2.0)
+# sign vectors: eigenphase_k of CAN(t) = V_SIGNS[k] . t
+V_SIGNS = np.array([[1, -1, 1], [1, 1, -1], [-1, -1, -1], [-1, 1, 1]], dtype=float)
 MAGIC = np.array(
     [
         [_SQ2, 0, 0, 1j * _SQ2],
@@ -139,3 +141,26 @@ def c1c2c3(U: torch.Tensor) -> torch.Tensor:
     and convention: CNOT = (1/2, 0, 0), iSwap = (1/2, 1/2, 0), SWAP =
     (1/2, 1/2, 1/2), B = (1/2, 1/4, 0)."""
     return _phases_to_c(gamma_eigenphases(U))
+
+
+def g1g2g3(U: torch.Tensor) -> torch.Tensor:
+    """Makhlin invariants (g1, g2, g3), (..., 3) real, from traces alone:
+    identity (1, 0, 3), CNOT (0, 0, 1), iSwap (0, 0, -1), SWAP (-1, 0, -3)."""
+    Us, _ = su4_normalize(U)
+    M = to_magic(Us)
+    m = M.transpose(-2, -1) @ M
+    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    tr2 = (m * m.transpose(-2, -1)).sum(dim=(-2, -1))  # tr(m m)
+    g12 = tr * tr
+    return torch.stack([g12.real / 16.0, g12.imag / 16.0, (g12.real - tr2.real) / 4.0], dim=-1)
+
+
+def canonical_gate(c: torch.Tensor) -> torch.Tensor:
+    """CAN((pi/2) c) = expm(i (pi/2)(c1 XX + c2 YY + c3 ZZ)) for c (..., 3)
+    real -> (..., 4, 4) complex, from its diagonal form in the magic basis."""
+    cdt = torch.complex64 if c.dtype == torch.float32 else torch.complex128
+    v = torch.as_tensor(V_SIGNS, dtype=c.dtype, device=c.device)
+    mu = (np.pi / 2.0) * (c[..., None, :] * v).sum(-1)  # (..., 4)
+    ph = torch.complex(torch.cos(mu), torch.sin(mu))
+    B = torch.as_tensor(MAGIC, dtype=cdt, device=c.device)
+    return (B * ph[..., None, :]) @ B.conj().T

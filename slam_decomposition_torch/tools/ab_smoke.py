@@ -14,8 +14,8 @@ OUT/ab_<run>_<tree>.txt (default build/ab_smoke/ at the root of this
 checkout; a relative OUT is taken from there). Printed per
 run: its exit code, the card, the ptxas and occupancy lines, each kernel's
 time beside its plain version's (phase 3), the bound and with_cost lines
-where the tree prints them, and the main path's and the transpile
-path's timing lines.
+where the tree prints them, the main path's and the transpile path's
+timing lines, and the API, depth and general-solver phases' lines.
 Exits 1 if any run failed.
 """
 
@@ -28,7 +28,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-KEEP = re.compile(r"^(NVIDIA |\[build\] (ptxas|occupancy)|\[bound\] |\[main\] |"
+KEEP = re.compile(r"^(NVIDIA |\[build\] (ptxas|occupancy)|\[bound\] |\[main\] |\[api\] |\[depth\] |\[general\] |"
                   r"\[parity\] adam_chain with_cost |\[transpile\] NVIDIA )")
 PARITY = re.compile(r"^\[parity\] (\S+) (.*?) L=(\d+):.*kernel ([\d.]+) ms, plain ([\d.]+) ms")
 

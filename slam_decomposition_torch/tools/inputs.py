@@ -9,20 +9,28 @@ import math
 import torch
 
 from slam_decomposition_torch.models import gates
-from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.models.templates import build_ansatz, chain_unitary, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.samplers import haar_sample
 
 
 def kernel_inputs(k: int, targets: int, restarts: int, dev) -> dict:
     """For the depth-k sqiSwap chain: ``g64`` / ``g32`` the gates, ``T``
-    (targets, 4, 4) complex128 Haar targets (seed 1000 + k), ``lanes_t`` the
+    (targets, 4, 4) complex128 Haar targets (seed 1000 + k; at depth 1, which
+    reaches no Haar target, the chain at uniform parameters from a device
+    generator of seed 1000 + k), ``lanes_t`` the
     targets in complex64 repeated per restart, ``x0`` (targets * restarts, n)
     f32 uniform in [0, 2 pi) (device generator, seed k) and ``sched`` the
     Adam schedule, all on ``dev``."""
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     g64 = torch.as_tensor(a.chain_gates).to(dev)
-    T = torch.as_tensor(haar_sample(targets, seed=1000 + k)).to(dev)
+    if k == 1:
+        tgen = torch.Generator(device=dev)
+        tgen.manual_seed(1000 + k)
+        xt = torch.rand((targets, a.n_params), generator=tgen, device=dev, dtype=torch.float64) * (2 * math.pi)
+        T = chain_unitary(xt, g64).contiguous()
+    else:
+        T = torch.as_tensor(haar_sample(targets, seed=1000 + k)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(k)
     x0 = torch.rand((targets * restarts, a.n_params), generator=gen, device=dev) * (2 * math.pi)

@@ -12,8 +12,9 @@ from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops.kak_batch import make_analytic_init
-from slam_decomposition_torch.opt.gauss_newton import make_analytic_solver, make_solver  # = ChainSolver, AnalyticSolver
-from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver, make_analytic_solver, make_solver
+from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+from slam_decomposition_torch.opt.samplers import haar_exact_sample, haar_sample, sqiswap_count_batch
 from slam_decomposition_torch.pipeline import decompose_haar
 from slam_decomposition_torch.transpile import library
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
@@ -21,10 +22,17 @@ from slam_decomposition_torch.transpile.consolidate import block_coordinate_coun
 from slam_decomposition_torch.transpile.passes import pass_manager_basic
 
 U = haar_sample(4, seed=3)
-CHAIN = build_ansatz(cycle_gates([gates.SQISWAP], 2)).chain_gates
+ANSATZ = build_ansatz(cycle_gates([gates.SQISWAP], 2))
+CHAIN = ANSATZ.chain_gates
 ENTRY_POINTS = {
     "decompose_haar": lambda: decompose_haar(B=8, chunk=8, restarts=1),
     "make_solver": lambda: make_solver(CHAIN),
+    "make_solver(eval_fn, kernel path)": lambda: make_solver(ANSATZ.eval_fn, ANSATZ.n_params, chain_gates=CHAIN),
+    "make_solver(eval_fn, general path)": lambda: make_solver(ANSATZ.eval_fn, ANSATZ.n_params, residual="makhlin"),
+    "ChainSolver": lambda: ChainSolver(CHAIN),
+    "GeneralSolver": lambda: GeneralSolver(ANSATZ.eval_fn, ANSATZ.n_params),
+    "TemplateOptimizer": lambda: TemplateOptimizer(ANSATZ),
+    "haar_exact_sample": lambda: haar_exact_sample(2, 4, seed=0),
     "make_analytic_solver": lambda: make_analytic_solver(2),
     "make_analytic_init": lambda: make_analytic_init(2),
     "sqiswap_decompose_batch": lambda: sqiswap_decompose_batch(U),

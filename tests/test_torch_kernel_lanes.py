@@ -18,12 +18,13 @@ import pytest
 import torch
 
 from slam_decomposition_torch.models import gates
-from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.models.templates import build_ansatz, chain_unitary, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
 
+KS = [1, 2, 3, 4]  # every depth the kernels are instantiated for
 LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
 
 
@@ -55,7 +56,11 @@ def _p(t):
 def _inputs(k, seed, L):
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     g64 = torch.as_tensor(a.chain_gates)
-    T = torch.as_tensor(haar_sample(L, seed=seed))
+    rng = np.random.default_rng(seed + 100)  # another stream than x0's
+    if k == 1:  # one sqiSwap reaches no Haar target: take targets of its own class
+        T = chain_unitary(torch.as_tensor(rng.uniform(0, 2 * np.pi, (L, a.n_params))), g64).contiguous()
+    else:
+        T = torch.as_tensor(haar_sample(L, seed=seed))
     x0 = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2 * np.pi, (L, a.n_params)), dtype=torch.float32)
     return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
 
@@ -76,7 +81,7 @@ def _polish(lib, x64, T, g64, iters, k):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_adam_lane_matches_plain(lanes, k, L):
     _, g32, _, T32, x0 = _inputs(k, 3, L)
     sched = ck.adam_schedule(100)[:25].contiguous()
@@ -86,7 +91,7 @@ def test_adam_lane_matches_plain(lanes, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_lm_lane_matches_plain(lanes, k, L):
     _, g32, _, T32, x0 = _inputs(k, 5, L)
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
@@ -100,7 +105,7 @@ def test_lm_lane_matches_plain(lanes, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_polish_lane_matches_plain(lanes, k, L):
     g64, g32, T, T32, x0 = _inputs(k, 7, L)
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
@@ -116,7 +121,7 @@ def test_polish_lane_matches_plain(lanes, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_adam_lane_cost_is_the_square_cost_of_its_x(lanes, k, L):
     _, g32, _, T32, x0 = _inputs(k, 11, L)
     sched = ck.adam_schedule(100)[:25].contiguous()
@@ -129,7 +134,7 @@ def test_adam_lane_cost_is_the_square_cost_of_its_x(lanes, k, L):
     np.testing.assert_allclose(cost.numpy(), cost_ref.numpy(), atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_polish_team_is_the_lm_team_with_a_double_residual(lanes, k):
     """One program serves both kernels: from the same f32-representable x
     and target, two iterations of the polish (residual in f64) and of the
@@ -144,7 +149,7 @@ def test_polish_team_is_the_lm_team_with_a_double_residual(lanes, k):
     assert np.isclose(f32.numpy(), f64.numpy(), rtol=1e-3, atol=1e-5).mean() >= 0.99
 
 
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_polish_lane_residual_is_f64(lanes, k):
     """At a polished x (||r||^2 ~ 1e-25) a target moved by 1e-9 raises
     ||r||^2 to ~1e-17: the f64 residual sees it and agrees with the plain

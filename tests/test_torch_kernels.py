@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from slam_decomposition_torch.models import gates
-from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.models.templates import build_ansatz, chain_unitary, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
@@ -20,6 +20,7 @@ from slam_decomposition_torch.transpile import kak
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 
 pytestmark = pytest.mark.cuda
+KS = [1, 2, 3, 4]  # every depth the kernels are instantiated for
 LANES = [512, 509]  # 509: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
 
 
@@ -33,14 +34,18 @@ def dev():
 def _inputs(k, dev, seed=0, L=512):
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     g64 = torch.as_tensor(a.chain_gates).to(dev)
-    T = torch.as_tensor(haar_sample(L, seed=seed)).to(dev)
+    rng = np.random.default_rng(seed + 100)  # another stream than x0's
+    if k == 1:  # one sqiSwap reaches no Haar target: take targets of its own class
+        T = chain_unitary(torch.as_tensor(rng.uniform(0, 2 * math.pi, (L, a.n_params))).to(dev), g64).contiguous()
+    else:
+        T = torch.as_tensor(haar_sample(L, seed=seed)).to(dev)
     rng = np.random.default_rng(seed)
     x0 = torch.as_tensor(rng.uniform(0, 2 * math.pi, (L, a.n_params)), dtype=torch.float32).to(dev)
     return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_adam_kernel_matches_plain(dev, k, L):
     _, g32, _, T32, x0 = _inputs(k, dev, L=L)
     sched = ck.adam_schedule(100, device=dev)[:25].contiguous()
@@ -54,7 +59,7 @@ def test_adam_kernel_matches_plain(dev, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_adam_kernel_with_cost(dev, k, L):
     """The instance that ends with one more chain evaluation: the same x as
     the default instance, and the f32 square cost of that x (atol 1e-5:
@@ -70,7 +75,7 @@ def test_adam_kernel_with_cost(dev, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_lm_kernel_matches_plain(dev, k, L):
     _, g32, _, T32, x0 = _inputs(k, dev, seed=1, L=L)
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
@@ -82,7 +87,7 @@ def test_lm_kernel_matches_plain(dev, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", KS)
 def test_polish_kernel_matches_plain(dev, k, L):
     g64, g32, T, T32, x0 = _inputs(k, dev, seed=2, L=L)
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
@@ -101,10 +106,10 @@ def test_polish_kernel_matches_plain(dev, k, L):
 
 def test_kernels_refuse_uninstantiated_depth(dev):
     g64, g32, T, T32, _ = _inputs(2, dev)
-    g4 = torch.cat([g32, g32]).contiguous()  # k = 4
-    x = torch.zeros((T32.shape[0], 30), dtype=torch.float32, device=dev)
+    g5 = torch.cat([g32, g32, g32[:1]]).contiguous()  # k = 5: 36 parameters, more than a warp's threads
+    x = torch.zeros((T32.shape[0], 36), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
-        ck.lm_chain(x, T32, g4, 1)
+        ck.lm_chain(x, T32, g5, 1)
 
 
 def test_batch_synth_on_the_card(dev):

@@ -8,7 +8,7 @@ from slam_decomposition_tpu.utils import mfu as jmfu
 from slam_decomposition_torch.utils import mfu
 
 
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_flop_counts_match_jax(k):
     assert mfu.chain_flops(k) == jmfu.chain_flops(k)
     assert mfu.adam_iter_flops(k) == jmfu.adam_iter_flops(k)
@@ -18,7 +18,7 @@ def test_flop_counts_match_jax(k):
         assert mfu.solve_flops_per_target(k, 4, cert=cert) == jmfu.solve_flops_per_target(k, 4, cert=cert)
 
 
-@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("k", [2, 3, 4])
 def test_launch_bounds(k):
     a = mfu.adam_launch(k, 40000, 100)
     assert a["flops"] == 40000 * 100 * mfu.adam_iter_flops(k) and a["bound_by"] == "operations"
@@ -45,3 +45,14 @@ def test_jacobian_column_count():
     then the phase term (134); the suffix chain 580 per gate."""
     assert mfu.JAC_COLUMN_FLOPS == 20 + 4 * (112 + 120 + 32) + 134 == 1210
     assert mfu.suffix_flops(2) == 1160 and mfu.suffix_flops(3) == 1740
+
+
+def test_counts_at_every_kernel_depth():
+    """The per-lane counts of the depths the kernels are instantiated for,
+    pinned: (forward chain, Adam step, J / A / b rebuild)."""
+    want = {1: (1080, 3400.0, 20860), 2: (1916, 5956.0, 35036), 3: (2752, 8512.0, 51516), 4: (3588, 11068.0, 70300)}
+    for k, (chain, adam, rebuild) in want.items():
+        assert (mfu.chain_flops(k), mfu.adam_iter_flops(k), mfu.lm_rebuild_flops(k)) == (chain, adam, rebuild)
+    # the bound of a launch grows with the depth and is by operations at every one
+    bounds = [mfu.lm_launch(k, 40000, 8)["bound_ms"] for k in want]
+    assert bounds == sorted(bounds) and all(mfu.polish_launch(k, 10000, 6)["bound_by"] == "operations" for k in want)

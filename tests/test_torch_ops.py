@@ -59,9 +59,16 @@ def test_eval_fn_and_chain_gates_match_jax(k):
 
 
 def test_unsupported_template_options_raise():
+    # build_ansatz takes every option now; what both packages still refuse
+    # is a parameterized gate on more than 2 qubits (the JAX package raises
+    # when the template is first evaluated, the port when it is built)
     for kw in ({"vz_only": True}, {"no_exterior_1q": True}, {"n_qubits": 3}):
-        with pytest.raises(NotImplementedError):
-            ttemplates.build_ansatz(ttemplates.cycle_gates([tgates.SQISWAP], 2), **kw)
+        ttemplates.build_ansatz(ttemplates.cycle_gates([tgates.SQISWAP], 2), **kw)
+    with pytest.raises(NotImplementedError):
+        ttemplates.build_ansatz_v2(lambda q, dtype: None, n_gate_params=2, k=1, n_qubits=3)
+    ja = jtemplates.build_ansatz_v2(lambda q, dtype: None, n_gate_params=2, k=1, n_qubits=3)
+    with pytest.raises(NotImplementedError):
+        ja.eval_fn(jnp.zeros(ja.n_params))
 
 
 def test_cg_sqiswap_matches_jax():

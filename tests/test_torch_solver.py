@@ -56,9 +56,9 @@ def test_solve_polishes_the_restart_of_smallest_lm_residual(monkeypatch):
     seen = {}
     polish = ck.polish_chain
 
-    def spy(x, tgt, gates):
+    def spy(x, tgt, gates, iters):
         seen["x"] = x
-        return polish(x, tgt, gates)
+        return polish(x, tgt, gates, iters)
 
     monkeypatch.setattr(ck, "polish_chain", spy)
     solver.solve(x0, T)

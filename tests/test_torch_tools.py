@@ -13,6 +13,7 @@ NVIDIA H100 80GB HBM3, 700.00 W
 [main] NVIDIA H100 80GB HBM3, 700.00 W: ranges 0.086 s, solve 0.097 s, rescue 0.027 s, total 0.210 s
 [transpile] qft(64): 2048 blocks, sqiswap counts {0: 741, 2: 1275, 3: 32}
 [transpile] NVIDIA H100 80GB HBM3, 700.00 W: qft(64) pass_manager_basic warm 0.941 s batched vs 8.138 s host loop
+[api] NVIDIA H100 80GB HBM3, 700.00 W: k=2 0.196 s, k=3 0.178 s, call 0.392 s -> 255117.9 targets/s
 {"ok": true}
 """
 
@@ -27,6 +28,7 @@ def test_summary_keeps_the_lines_to_compare():
         "[main] NVIDIA H100 80GB HBM3, 700.00 W: ranges 0.086 s, solve 0.097 s, rescue 0.027 s, total 0.210 s",
         "[transpile] NVIDIA H100 80GB HBM3, 700.00 W: qft(64) pass_manager_basic warm 0.941 s batched vs "
         "8.138 s host loop",
+        "[api] NVIDIA H100 80GB HBM3, 700.00 W: k=2 0.196 s, k=3 0.178 s, call 0.392 s -> 255117.9 targets/s",
     ]
 
 
