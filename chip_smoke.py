@@ -40,19 +40,25 @@ Phases, one line each (more for the build report):
      objective "square", spanning_range [2, 3], 5 restarts, on
      haar_sample(100000, seed=456). The three kernels must run and the
      general solver must not; a target solved at depth 2 must have monodromy
-     depth 2 or lie within 1e-4 of the depth-2 region; every reported loss <= 1e-10 is confirmed by the f64 cost of
-     its parameters; the success share must reach API_SUCCESS_MIN;
+     depth 2 or lie within 2e-5 of the depth-2 region; every reported loss
+     <= 1e-10 is confirmed by the f64 cost of its parameters; the success
+     share must reach API_SUCCESS_MIN; the launches must be one per chunk
+     solved; then the kernels against their plain versions at one chunk's
+     lanes (81920 f32, 16384 f64) with phase 3's limits;
   7. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
      to 1000 targets (cycles 1, 2, 2, 3), the CNOT basis at depth 3 on
      haar_sample(10000, seed=2), depths 4 and 5 on 500 Haar targets (4: the
      kernels, 5: the general solver, by rule; the path of every depth is
-     printed), and the K = 1 and K = 4 kernel instances against their plain
-     versions with phase 3's limits;
+     printed), every run at exactly one launch of each kernel (or one call
+     of the general solver) per chunk, and the kernels against their plain
+     versions at these runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's
+     K = 3 at 50000 / 10000, K = 4 at 2500 / 500) with phase 3's limits;
   8. general solver on the card: the reduced and Makhlin objectives at depth
      3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
      restarts), a free conversion-gain gate under bounds reaching CNOT at
      depth 1 from 256 restarts, and the chain template forced through the
-     general solver against the kernel path from the same starts;
+     general solver against the kernel path from the same starts, restart
+     by restart;
   9. result: a JSON line of the kernels (launches summed over the counted
      runs of phases 4 to 8), then the device line.
 
@@ -90,7 +96,7 @@ ADAM_WITH_COST_ATOL = 1e-5  # the kernel's f32 cost against the plain f32 cost o
 # instance builds with a 0 B frame, PERF.md section 6), no array of the kernels'
 STACK_MAX = 72
 LM_RTOL, LM_ATOL, LM_LANE_FRAC = 1e-3, 1e-5, 0.99
-POLISH_VERDICT_FRAC, POLISH_COST_ATOL, CERT_ATOL = 0.999, 1e-11, 1e-13
+POLISH_VERDICT_FRAC, POLISH_COST_ATOL, POLISH_COST_FRAC, CERT_ATOL = 0.999, 1e-11, 0.995, 1e-13
 # transpile phase. QFT-64's reference values are the JAX package's own
 # (pass_manager_basic on its CPU backend, command in PERF.md): the host loop
 # emits 2722 sqiSwaps; the batched path counts the 38 blocks cp(pi/2^26)
@@ -109,15 +115,19 @@ API_SUCCESS_MIN = 0.999  # share of the 100000 targets solved at <= 1e-10
 # A target within ~1e-5 of the depth-2 region has a depth-2 circuit at cost <=
 # 1e-10 (the cost is quadratic in the distance) although its exact depth is 3:
 # such a target may be solved at depth 2 if |c3| - (c1 - c2) in the folded
-# chamber, which the depth-2 region bounds by 0, is at most this
-API_BOUNDARY_SLACK = 1e-4
-DEPTH_TILE, DEPTH_CNOT_B, DEPTH_CNOT_MIN, DEPTH_DEEP_B, DEPTH_PARITY_TARGETS = 250, 10_000, 0.99, 500, 1000
-DEPTH_LEAST_MIN = 0.95  # share of a gate's copies solved at its least depth
+# chamber, which the depth-2 region bounds by 0, is at most this (read 4.25e-06
+# at three seeds of the starts: the same two targets)
+API_BOUNDARY_SLACK = 2e-5
+DEPTH_TILE, DEPTH_CNOT_B, DEPTH_CNOT_MIN, DEPTH_DEEP_B = 250, 10_000, 0.99, 500
+# share of a gate's copies solved at its least depth: sqiSwap's at depth 1
+# read 246, 245, 249 of 250 at three seeds, the others 250 of 250
+DEPTH_LEAST_MIN = (0.96, 0.99, 0.99, 0.99)
 GENERAL_CLASS_B, GENERAL_CLASS_THRESH, GENERAL_CLASS_MIN = 10_000, 1e-9, 0.99
 GENERAL_LBFGS_B, GENERAL_LBFGS_MIN = 2000, 0.99
 GENERAL_V2_RESTARTS = 256
 GENERAL_CHAIN_B, GENERAL_VERDICT_FRAC = 2000, 0.99
-RANK_TIE_ATOL = 1e-4  # ||r||^2 of a converged restart after the f32 LM sits at ~1e-6 to 1e-5
+# the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
+RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
 
 
 class SmokeFailure(RuntimeError):
@@ -192,24 +202,26 @@ def fresh_iterations(fn, x, T, g, iters):
     return 1.0 + accepted.mean().item()
 
 
-def bound_line(name, k, bound, ms):
+def bound_line(name, label, bound, ms):
     """Print and return the instance's bound against its measured time."""
-    print(f"[bound] {name} k={k}: {bound['flops']:.4e} flops, {bound['bytes']} B -> bound {bound['bound_ms']:.4f} ms "
+    print(f"[bound] {name} {label}: {bound['flops']:.4e} flops, {bound['bytes']} B -> bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}); kernel {ms:.3f} ms = {bound['bound_ms'] / ms:.1%} of the bound")
     return bound
 
 
-def phase_parity(stats, ks=(2, 3), targets=CHUNK):
+def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gate=None):
     """Each kernel's depth-k instance against its plain version at ``targets``
-    x RESTARTS lanes; fills stats[kernel] with max_abs_err and, per k, ms_k,
-    plain_ms_k and bound_k."""
+    x ``restarts`` f32 lanes (``targets`` f64 lanes for the polish) of the
+    chain of ``gate`` (default sqiSwap); fills stats[kernel] with max_abs_err
+    and, under the label "k<k><tag>", lanes, ms, plain_ms and bound."""
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
     from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
     for k in ks:
-        g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, RESTARTS, dev).values()
+        g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, restarts, dev, gate).values()
+        label = f"k{k}{tag}"
 
         # Adam: f32 association order differs, and Adam's m/sqrt(v) step
         # amplifies it on lanes whose gradient components sit near zero
@@ -224,23 +236,23 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK):
         ca = ck.square_cost(xa, lanes_t, g32)
         ca_ref = ck.square_cost(xa_ref, lanes_t, g32)
         dfrac = abs((ca < 1e-2).float().mean().item() - (ca_ref < 1e-2).float().mean().item())
-        print(f"[parity] adam_chain k={k} L={x0.shape[0]}: {ADAM_PARITY_ITERS} steps max|dx| {d.max().item():.3e}, "
+        print(f"[parity] adam_chain {label} L={x0.shape[0]}: {ADAM_PARITY_ITERS} steps max|dx| {d.max().item():.3e}, "
               f"{frac:.5f} of lanes within {ADAM_ATOL:g} (need >= {ADAM_LANE_FRAC}); 100 steps "
               f"|d frac(cost<1e-2)| {dfrac:.4f} (need <= {ADAM_COST_FRAC_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(frac >= ADAM_LANE_FRAC and dfrac <= ADAM_COST_FRAC_TOL, f"adam_chain k={k} disagrees with its plain version")
+        check(frac >= ADAM_LANE_FRAC and dfrac <= ADAM_COST_FRAC_TOL, f"adam_chain {label} disagrees with its plain version")
         st = stats["adam_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], d.max().item())
-        st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
-        st[f"bound_k{k}"] = bound_line("adam_chain", k, mfu.adam_launch(k, x0.shape[0], sched.shape[0]), ms)
+        st[label] = {"lanes": x0.shape[0], "ms": ms, "plain_ms": plain_ms,
+                     "bound": bound_line("adam_chain", label, mfu.adam_launch(k, x0.shape[0], sched.shape[0]), ms)}
         # the instance that also returns the square cost: the same program
         # up to the last step, so its x must be the default instance's (held
         # to the plain version above) bit for bit
         (xc, cost), ms_c = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched, with_cost=True))
         cerr = (cost - ck.square_cost(xc, lanes_t, g32)).abs().max().item()
-        print(f"[parity] adam_chain with_cost k={k}: max|dx| to the default instance {(xc - xa).abs().max().item():.3e} "
+        print(f"[parity] adam_chain with_cost {label}: max|dx| to the default instance {(xc - xa).abs().max().item():.3e} "
               f"(need 0), max|cost - plain cost of its x| {cerr:.3e} (need <= {ADAM_WITH_COST_ATOL:g}); kernel {ms_c:.3f} ms")
-        check(torch.equal(xc, xa), f"adam_chain with_cost k={k}: x differs from the default instance's")
-        check(cerr <= ADAM_WITH_COST_ATOL, f"adam_chain with_cost k={k}: cost disagrees with the plain cost of its x")
+        check(torch.equal(xc, xa), f"adam_chain with_cost {label}: x differs from the default instance's")
+        check(cerr <= ADAM_WITH_COST_ATOL, f"adam_chain with_cost {label}: cost disagrees with the plain cost of its x")
 
         # LM: compare ||r||^2 per lane; accept/reject decisions near the f32
         # floor may differ, hence the lane fraction (the JAX kernel test's bound)
@@ -248,34 +260,37 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK):
         (_, fl_ref), plain_ms = timed_ms(lambda: ck.lm_chain_ref(xa, lanes_t, g32))
         ok = torch.isclose(fl, fl_ref, rtol=LM_RTOL, atol=LM_ATOL).float().mean().item()
         err = (fl - fl_ref).abs().max().item()
-        print(f"[parity] lm_chain k={k} L={xa.shape[0]}: max|d||r||^2| {err:.3e}, {ok:.5f} of lanes within "
+        print(f"[parity] lm_chain {label} L={xa.shape[0]}: max|d||r||^2| {err:.3e}, {ok:.5f} of lanes within "
               f"rtol {LM_RTOL:g} atol {LM_ATOL:g} (need >= {LM_LANE_FRAC}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(ok >= LM_LANE_FRAC, f"lm_chain k={k} disagrees with its plain version")
+        check(ok >= LM_LANE_FRAC, f"lm_chain {label} disagrees with its plain version")
         st = stats["lm_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
         fresh = fresh_iterations(ck.lm_chain, xa, lanes_t, g32, ck.LM32_ITERS)
-        print(f"[bound] lm_chain k={k}: {fresh:.3f} of {ck.LM32_ITERS} iterations per lane rebuild J")
-        st[f"bound_k{k}"] = bound_line("lm_chain", k, mfu.lm_launch(k, xa.shape[0], ck.LM32_ITERS, fresh), ms)
+        print(f"[bound] lm_chain {label}: {fresh:.3f} of {ck.LM32_ITERS} iterations per lane rebuild J")
+        st[label] = {"lanes": xa.shape[0], "ms": ms, "plain_ms": plain_ms,
+                     "bound": bound_line("lm_chain", label, mfu.lm_launch(k, xa.shape[0], ck.LM32_ITERS, fresh), ms)}
 
         # polish from each target's best restart
-        xb = best_restart(xl, fl, RESTARTS)
-        err, ms, plain_ms = polish_parity(f"k={k}", xb, T, g64)
+        xb = best_restart(xl, fl, restarts)
+        err, ms, plain_ms = polish_parity(label, xb, T, g64)
         st = stats["polish_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        st[f"ms_k{k}"], st[f"plain_ms_k{k}"] = ms, plain_ms
         fresh = fresh_iterations(ck.polish_chain, xb, T, g64, ck.LM_ITERS)
-        print(f"[bound] polish_chain k={k}: {fresh:.3f} of {ck.LM_ITERS} iterations per lane rebuild J")
-        st[f"bound_k{k}"] = bound_line("polish_chain", k, mfu.polish_launch(k, xb.shape[0], ck.LM_ITERS, fresh), ms)
+        print(f"[bound] polish_chain {label}: {fresh:.3f} of {ck.LM_ITERS} iterations per lane rebuild J")
+        st[label] = {"lanes": xb.shape[0], "ms": ms, "plain_ms": plain_ms,
+                     "bound": bound_line("polish_chain", label, mfu.polish_launch(k, xb.shape[0], ck.LM_ITERS, fresh), ms)}
 
 
 def polish_parity(label, x, T, g64):
     """The polish kernel against its plain version from the same x (L, n)
-    f64: the certificates must give the same <= THRESH verdicts and agree
-    within 10% of the bar where both certify (J is f32 in both, so an LM
-    step at the f32 floor can be accepted in one and rejected in the
-    other), and the kernel's certificate must match the true f64 cost of
-    its x. Returns (max |d cost| where both certify, kernel ms, plain ms)."""
+    f64: the certificates must give the same <= THRESH verdicts and, on
+    POLISH_COST_FRAC of the lanes both certify, agree within 10% of the bar,
+    and the kernel's certificate must match the true f64 cost of its x. J
+    is f32 in both, so the few lanes whose LM stalls between 1e-13 and the
+    bar (1 to 24 a launch, PERF.md) end wherever the rounding of J takes
+    them: there the two costs have read up to 1.3e-11 apart, on every other
+    lane under 1e-13. Returns (max |d cost| where both certify, kernel ms,
+    plain ms)."""
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.opt.gauss_newton import certificate
 
@@ -285,14 +300,16 @@ def polish_parity(label, x, T, g64):
     verdict = ((c <= THRESH) == (c_ref <= THRESH)).double().mean().item()
     both = (c <= THRESH) & (c_ref <= THRESH)
     err = (c - c_ref)[both].abs().max().item() if both.any() else 0.0
+    close = ((c - c_ref)[both].abs() <= POLISH_COST_ATOL).double().mean().item() if both.any() else 1.0
     true = ck.square_cost(xp, T, g64)
     cert = c <= THRESH
     cert_err = (c - true)[cert].abs().max().item() if cert.any() else 0.0
     print(f"[parity] polish_chain {label} L={x.shape[0]}: certified {int(cert.sum())} vs plain "
           f"{int((c_ref <= THRESH).sum())}, same verdict on {verdict:.5f} of lanes (need >= {POLISH_VERDICT_FRAC}), "
-          f"max|d cost| where both certify {err:.3e} (need <= {POLISH_COST_ATOL:g}), certificate vs true f64 cost "
+          f"max|d cost| where both certify {err:.3e}, within {POLISH_COST_ATOL:g} on {close:.5f} of those lanes (need >= "
+          f"{POLISH_COST_FRAC}), certificate vs true f64 cost "
           f"{cert_err:.3e} (need <= {CERT_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    check(verdict >= POLISH_VERDICT_FRAC and err <= POLISH_COST_ATOL and cert_err <= CERT_ATOL,
+    check(verdict >= POLISH_VERDICT_FRAC and close >= POLISH_COST_FRAC and cert_err <= CERT_ATOL,
           f"polish_chain {label} disagrees with its plain version")
     return err, ms, plain_ms
 
@@ -515,13 +532,28 @@ def certified_share(basis, res, U, dev):
     return ok.mean()
 
 
-def phase_api(card, counted):
+def expected_chunks(res, ks, chunk):
+    """How many chunks of ``chunk`` targets the optimizer must solve over the
+    depths ks, from its result: at each depth the targets that no smaller
+    depth solved. Every chunk launches each kernel once on the kernel path
+    and is one call of the general solver on the other."""
+    n = len(res.cycles)
+    return sum(math.ceil((n - int((res.success & (res.cycles < k)).sum())) / chunk) for k in ks)
+
+
+def check_counts(what, launches, general, want_launches, want_general):
+    check(all(v == want_launches for v in launches.values()) and general == want_general,
+          f"{what}: launches {launches} (expected {want_launches} of each kernel), general-solver calls {general} "
+          f"(expected {want_general})")
+
+
+def phase_api(card, counted, stats):
     """The README's first quick-start on the card at full width."""
     from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
     from slam_decomposition_torch.models import gates
-    from slam_decomposition_torch.ops.weyl import c1c2c3
-    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.optimizer import CHUNK as API_CHUNK, TemplateOptimizer
     from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.tools.optimizer_readings import depth2_excess
 
     basis = _sqiswap_basis()
     U = haar_sample(B, seed=SEED)
@@ -535,10 +567,11 @@ def phase_api(card, counted):
     certified = certified_share(basis, res, U, torch.device("cuda"))
     late = int(((res.cycles == 3) & (ks == 2)).sum())  # depth-2 targets whose restarts all missed at depth 2
     early = np.where((res.cycles == 2) & (ks == 3) & res.success)[0]  # depth 3, yet a depth-2 circuit at <= 1e-10
-    c = c1c2c3(torch.as_tensor(U[early]).to(torch.device("cuda"))).cpu().numpy().reshape(-1, 3)
-    outside = np.abs(c[:, 2]) - (np.minimum(c[:, 0], 1.0 - c[:, 0]) - c[:, 1])  # > 0: outside the depth-2 region
+    outside = depth2_excess(U[early], torch.device("cuda"))  # > 0: outside the depth-2 region
     hist = _hist(res.cycles)
-    print(f"[api] paths {opt.solver_paths}; launches {launches}; general-solver calls {general}; cycles {hist} "
+    want = expected_chunks(res, (2, 3), API_CHUNK)
+    print(f"[api] paths {opt.solver_paths}; launches {launches} (expected {want} each: one per chunk of {API_CHUNK} targets); "
+          f"general-solver calls {general}; cycles {hist} "
           f"(monodromy {_hist(ks)}: {late} depth-2 targets solved at depth 3, {len(early)} depth-3 targets solved at depth 2, "
           f"at most {outside.max(initial=0.0):.2e} outside the depth-2 region, allowed {API_BOUNDARY_SLACK:g}); "
           f"success {int(res.success.sum())}/{B} = {share:.5f} (need >= {API_SUCCESS_MIN}), confirmed in f64 {certified:.5f}; "
@@ -546,19 +579,21 @@ def phase_api(card, counted):
     print(f"[api] {card}: " + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items())
           + f", call {wall:.3f} s -> {res.success.sum() / wall:.1f} targets/s; peak device memory {peak:.0f} MiB")
     check(opt.solver_paths == {2: "kernels", 3: "kernels"}, f"paths {opt.solver_paths}")
-    check(all(v > 0 for v in launches.values()) and general == 0, f"launches {launches}, general calls {general}")
+    check_counts("api", launches, general, want, 0)
     check(_hist(ks) == WANT_HIST, f"monodromy histogram {_hist(ks)} != {WANT_HIST}")
     check((outside <= API_BOUNDARY_SLACK).all(),
           f"a target {outside.max(initial=0.0):.2e} outside the depth-2 region is reported solved at depth 2")
     check(set(res.cycles[res.success]) <= {2, 3}, "a solved target's cycles is neither 2 nor 3")
     check(share >= API_SUCCESS_MIN and certified == share, f"success share {share}, confirmed {certified}")
-    return share
+    # the kernels against their plain versions at the lanes of one full chunk
+    # of this path, outside the counted run
+    phase_parity(stats, ks=(2, 3), targets=API_CHUNK, restarts=API_RESTARTS, tag="_api")
 
 
 def phase_depth(card, counted, stats):
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
-    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.optimizer import CHUNK as API_CHUNK, TemplateOptimizer
     from slam_decomposition_torch.opt.samplers import haar_sample
 
     dev = torch.device("cuda")
@@ -576,10 +611,10 @@ def phase_depth(card, counted, stats):
     # solved one deeper
     least = np.array([1, 2, 2, 3])
     at_least = (cyc == least).mean(axis=0)
-    check(res.success.all() and (cyc >= least).all() and (at_least >= DEPTH_LEAST_MIN).all(),
+    check(res.success.all() and (cyc >= least).all() and (at_least >= np.array(DEPTH_LEAST_MIN)).all(),
           f"cycles are not 1, 2, 2, 3: shares at the least depth {at_least}")
-    check(opt.solver_paths == {1: "kernels", 2: "kernels", 3: "kernels"} and general == 0, f"paths {opt.solver_paths}")
-    check(all(v >= 3 for v in launches.values()), f"launches {launches}: every depth launches every kernel")
+    check(opt.solver_paths == {1: "kernels", 2: "kernels", 3: "kernels"}, f"paths {opt.solver_paths}")
+    check_counts("depths 1, 2, 3", launches, general, expected_chunks(res, (1, 2, 3), API_CHUNK), 0)
     certified_share(basis, res, U, dev)
     # (b) the CNOT basis at depth 3
     cnot = lambda k: build_ansatz(cycle_gates([gates.CNOT], k))  # noqa: E731
@@ -589,7 +624,8 @@ def phase_depth(card, counted, stats):
     share = certified_share(cnot, res, U, dev)
     print(f"[depth] cnot basis k=3, haar {DEPTH_CNOT_B} (seed 2): success {share:.5f} (need >= {DEPTH_CNOT_MIN}), "
           f"launches {launches}, {wall:.3f} s")
-    check(share >= DEPTH_CNOT_MIN and general == 0 and all(v > 0 for v in launches.values()), "cnot basis at depth 3")
+    check(share >= DEPTH_CNOT_MIN, "cnot basis at depth 3")
+    check_counts("cnot basis at depth 3", launches, general, math.ceil(DEPTH_CNOT_B / API_CHUNK), 0)
     # (c) depths 4 and 5: which path each takes, by rule
     U = haar_sample(DEPTH_DEEP_B, seed=7)
     for k, want in ((4, "kernels"), (5, "general")):
@@ -600,10 +636,13 @@ def phase_depth(card, counted, stats):
               f"parameters {'<=' if k < 5 else '>'} 32 threads), success {share:.5f}, launches {launches}, "
               f"general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
         check(opt.solver_paths[k] == want and share >= DEPTH_CNOT_MIN, f"depth {k}: path {opt.solver_paths[k]}, success {share}")
-        check((general == 0 and all(v > 0 for v in launches.values())) if k == 4 else
-              (general > 0 and not any(launches.values())), f"depth {k}: launches {launches}, general calls {general}")
-    # (d) the new instances against their plain versions, outside the counted runs
-    phase_parity(stats, ks=(1, 4), targets=DEPTH_PARITY_TARGETS)
+        chunks = math.ceil(DEPTH_DEEP_B / API_CHUNK)
+        check_counts(f"depth {k}", launches, general, chunks if k == 4 else 0, 0 if k == 4 else chunks)
+    # (d) the kernels against their plain versions at the lanes (a), (b) and
+    # (c) launch them with, outside the counted runs
+    phase_parity(stats, ks=(1,), targets=4 * DEPTH_TILE, restarts=API_RESTARTS)
+    phase_parity(stats, ks=(3,), targets=DEPTH_CNOT_B, restarts=API_RESTARTS, tag="_cnot", gate=gates.CNOT)
+    phase_parity(stats, ks=(4,), targets=DEPTH_DEEP_B, restarts=API_RESTARTS)
 
 
 def phase_general(card, counted):
@@ -611,8 +650,9 @@ def phase_general(card, counted):
     from slam_decomposition_torch.models import hamiltonians as ham
     from slam_decomposition_torch.models.templates import build_ansatz, build_ansatz_v2, cycle_gates
     from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver
-    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+    from slam_decomposition_torch.opt.optimizer import CHUNK as API_CHUNK, TemplateOptimizer
     from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+    from slam_decomposition_torch.tools.optimizer_readings import ranking_agreement
 
     dev = torch.device("cuda")
     basis = _sqiswap_basis()
@@ -626,7 +666,8 @@ def phase_general(card, counted):
         print(f"[general] {card}: {obj}, sqiswap k=3, haar {GENERAL_CLASS_B}: success {share:.5f} at <= "
               f"{GENERAL_CLASS_THRESH:g} (need >= {GENERAL_CLASS_MIN}), path {opt.solver_paths[3]}, kernel launches "
               f"{launches}, general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
-        check(opt.solver_paths == {3: "general"} and general > 0 and not any(launches.values()), f"{obj}: wrong path")
+        check(opt.solver_paths == {3: "general"}, f"{obj}: wrong path")
+        check_counts(obj, launches, general, 0, math.ceil(GENERAL_CLASS_B / API_CHUNK))
         check(share >= GENERAL_CLASS_MIN and np.isfinite(res.loss).all(), f"{obj}: success {share}")
     # (b) the batched L-BFGS
     cnot = lambda k: build_ansatz(cycle_gates([gates.CNOT], k))  # noqa: E731
@@ -638,7 +679,8 @@ def phase_general(card, counted):
     print(f"[general] {card}: lbfgs, cnot k=3, haar {GENERAL_LBFGS_B} x {opt.training_restarts} restarts: success "
           f"{share:.5f} (need >= {GENERAL_LBFGS_MIN}), {st['evals']} batched evaluations, {st['syncs']} host reads, "
           f"{st['iters']} lane-iterations, {wall:.3f} s, peak {peak:.0f} MiB")
-    check(opt.solver_paths == {3: "lbfgs"} and general == 0 and not any(launches.values()), "lbfgs: wrong path")
+    check(opt.solver_paths == {3: "lbfgs"}, "lbfgs: wrong path")
+    check_counts("lbfgs", launches, general, 0, 0)
     check(share >= GENERAL_LBFGS_MIN, f"lbfgs: success {share}")
     # (c) a parameterized gate under bounds
     bounds = (np.zeros(2), np.full(2, np.pi / 2))
@@ -649,7 +691,8 @@ def phase_general(card, counted):
     q = res.params[0, ansatz.n_params_1q:]
     print(f"[general] {card}: free conversion-gain gate -> CNOT at k=1, {GENERAL_V2_RESTARTS} restarts under bounds: loss "
           f"{res.loss[0]:.3e}, (gc, gg) = ({q[0]:.6f}, {q[1]:.6f}), path {opt.solver_paths[1]}, {wall:.3f} s")
-    check(res.success.all() and opt.solver_paths == {1: "general"} and general > 0, f"v2: loss {res.loss}")
+    check(res.success.all() and opt.solver_paths == {1: "general"}, f"v2: loss {res.loss}")
+    check_counts("v2", launches, general, 0, 1)
     check((q >= -1e-12).all() and (q <= np.pi / 2 + 1e-12).all(), f"v2: gate parameters {q} leave their bounds")
     # (d) the chain template forced through the general solver, against the
     # kernel path from the same starts
@@ -666,23 +709,25 @@ def phase_general(card, counted):
         (xg, fg), wall_g, _, general, peak = counted(lambda: general_solver.solve(x0, T))
         verdict = ((fk <= THRESH) == (fg <= THRESH)).double().mean().item()
         both = ((fk <= THRESH) & (fg <= THRESH)).double().mean().item()
-        # which restart each path ranks best (outside the counted runs). Where
-        # several restarts converge they tie at the f32 floor and either
-        # ranking picks among them by rounding, so the general path's winner
-        # must be one the kernel path ranks within that floor of its own
-        _, sk = kernel.rank(x0, T)
-        _, sg = general_solver.rank(x0, T)
-        best_k, best_g = sk.argmin(dim=1), sg.argmin(dim=1)
-        rows = torch.arange(T.shape[0], device=dev)
-        same = (best_k == best_g).double().mean().item()
-        tied = (sk[rows, best_g] <= sk[rows, best_k] + RANK_TIE_ATOL).double().mean().item()
+        # restart by restart, outside the counted runs: both paths must find
+        # the same restarts converged. Which of several converged restarts
+        # ranks best is decided by f32 rounding (their scores tie at the
+        # floor), so the best restart is held to be the same one only on the
+        # targets with a single converged restart, and elsewhere the general
+        # path's winner must be one the kernel path's score finds converged
+        r = ranking_agreement(kernel, general_solver, x0, T)
         print(f"[general] {card}: chain k={k}, {T.shape[0]} targets x {API_RESTARTS} restarts, kernel path against "
               f"general path from the same starts: certified {(fk <= THRESH).double().mean().item():.5f} / "
               f"{(fg <= THRESH).double().mean().item():.5f}, both {both:.5f}, same verdict {verdict:.5f} (need >= "
-              f"{GENERAL_VERDICT_FRAC}), same best restart {same:.5f}, or one tied with it within {RANK_TIE_ATOL:g} "
-              f"in ||r||^2 {tied:.5f} (need >= {GENERAL_VERDICT_FRAC}); {wall_k:.3f} s ({launches}) against "
+              f"{GENERAL_VERDICT_FRAC}); restarts converged in both or neither {r['lanes_same']:.5f} (need >= "
+              f"{RANK_LANES_MIN}), lanes by the kernels' score in decades from 1e-10 {[round(v, 5) for v in r['decades']]}; "
+              f"same best restart {r['same_best']:.5f}, on the {r['single']:.5f} of targets with one converged restart "
+              f"{r['same_best_single']:.5f} (need >= {RANK_SINGLE_MIN}), general path's winner converged by the kernels' "
+              f"score {r['winner_converged']:.5f} (need >= {RANK_WINNER_MIN}); {wall_k:.3f} s ({launches}) against "
               f"{wall_g:.3f} s ({general} general call), peak {peak:.0f} MiB")
-        check(verdict >= GENERAL_VERDICT_FRAC and tied >= GENERAL_VERDICT_FRAC, f"chain k={k}: the two paths disagree")
+        check(verdict >= GENERAL_VERDICT_FRAC, f"chain k={k}: the two paths certify different targets")
+        check(r["lanes_same"] >= RANK_LANES_MIN and r["same_best_single"] >= RANK_SINGLE_MIN
+              and r["winner_converged"] >= RANK_WINNER_MIN, f"chain k={k}: the two paths rank the restarts differently")
         check(all(v == 1 for v in launches.values()) and general == 1, f"chain k={k}: launches {launches}, general {general}")
         check((general_solver.certify(xg, T)[fg <= THRESH] <= THRESH + CERT_ATOL).all(), "general path's cost is not its x's")
 
@@ -702,7 +747,7 @@ def main() -> int:
         t_counts, t_polish_err = phase_transpile(card, main_rate)
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
         counted = Counted()
-        phase_api(card, counted)
+        phase_api(card, counted, stats)
         phase_depth(card, counted, stats)
         phase_general(card, counted)
         print(f"[result] launches of the API, depth and general-solver runs: {counted.total}")
@@ -718,22 +763,25 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": counts[name],
             "max_abs_err": stats[name]["max_abs_err"],
-            "ms": stats[name]["ms_k2"],
-            "plain_ms": stats[name]["plain_ms_k2"],
-            "bound_ms": stats[name]["bound_k2"]["bound_ms"],
-            "bound_by": stats[name]["bound_k2"]["bound_by"],
+            "ms": stats[name]["k2"]["ms"],
+            "plain_ms": stats[name]["k2"]["plain_ms"],
+            "bound_ms": stats[name]["k2"]["bound"]["bound_ms"],
+            "bound_by": stats[name]["k2"]["bound"]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a per-lane solve
-            "flops": stats[name]["bound_k2"]["flops"],
-            # the other instances: k = 3 at the main path's lanes, k = 1 and 4
-            # at the depth phase's (DEPTH_PARITY_TARGETS x RESTARTS)
+            "flops": stats[name]["k2"]["bound"]["flops"],
+            "lanes": stats[name]["k2"]["lanes"],
+            # the other instances and shapes: k3 at the main path's lanes, the
+            # others at the lanes the API and depth phases launch
             **{
-                f"{key}_k{k}": val
-                for k in (3, 1, 4)
+                f"{key}_{label}": val
+                for label, shape in stats[name].items()
+                if label not in ("k2", "max_abs_err")
                 for key, val in (
-                    ("ms", stats[name][f"ms_k{k}"]),
-                    ("plain_ms", stats[name][f"plain_ms_k{k}"]),
-                    ("bound_ms", stats[name][f"bound_k{k}"]["bound_ms"]),
-                    ("flops", stats[name][f"bound_k{k}"]["flops"]),
+                    ("lanes", shape["lanes"]),
+                    ("ms", shape["ms"]),
+                    ("plain_ms", shape["plain_ms"]),
+                    ("bound_ms", shape["bound"]["bound_ms"]),
+                    ("flops", shape["bound"]["flops"]),
                 )
             },
         }

@@ -74,46 +74,45 @@ def _givens(n, p, q, c, s):
     return (eye - D) + c[..., None, None] * D + s[..., None, None] * Epq - s.conj()[..., None, None] * Epq.T
 
 
-def joint_diag(X: torch.Tensor, Y: torch.Tensor, sweeps: int = 12, out_of_place=None):
-    """Jointly diagonalize commuting real symmetric (..., n, n) matrices.
-
-    Returns (x, y, V) with X = V diag(x) V^T and Y = V diag(y) V^T. The
-    inputs are not modified. ``out_of_place`` (default: when an input
-    requires grad) rotates by products with Givens matrices, which
-    autograd can differentiate; the in-place rotations are cheaper."""
+def _joint_diag_out_of_place(X, Y, sweeps):
+    """joint_diag by products with Givens matrices, which autograd can
+    differentiate."""
     n = X.shape[-1]
-    if out_of_place is None:
-        out_of_place = torch.is_grad_enabled() and (X.requires_grad or Y.requires_grad)
-    if out_of_place:
-        V = torch.eye(n, dtype=X.dtype, device=X.device).expand(X.shape)
-        for _ in range(sweeps):
-            for p, q in _pairs(n):
-                G = _givens(n, p, q, *_joint_angle(X, Y, p, q))
-                Gt = G.transpose(-2, -1)
-                X = G @ X @ Gt
-                Y = G @ Y @ Gt
-                V = V @ Gt
-        return torch.diagonal(X, dim1=-2, dim2=-1), torch.diagonal(Y, dim1=-2, dim2=-1), V
+    V = torch.eye(n, dtype=X.dtype, device=X.device).expand(X.shape)
+    for _ in range(sweeps):
+        for p, q in _pairs(n):
+            G = _givens(n, p, q, *_joint_angle(X, Y, p, q))
+            Gt = G.transpose(-2, -1)
+            X = G @ X @ Gt
+            Y = G @ Y @ Gt
+            V = V @ Gt
+    return torch.diagonal(X, dim1=-2, dim2=-1), torch.diagonal(Y, dim1=-2, dim2=-1), V
+
+
+def _joint_diag_in_place(X, Y, sweeps):
+    """joint_diag by rotations in place on copies of the inputs (cheaper)."""
+    n = X.shape[-1]
     X = X.clone()
     Y = Y.clone()
     V = torch.eye(n, dtype=X.dtype, device=X.device).expand(X.shape).clone()
     for _ in range(sweeps):
         for p, q in _pairs(n):
-            ux = X[..., p, q]
-            vx = 0.5 * (X[..., p, p] - X[..., q, q])
-            uy = Y[..., p, q]
-            vy = 0.5 * (Y[..., p, p] - Y[..., q, q])
-            num = 2.0 * (ux * vx + uy * vy)
-            den = vx * vx + vy * vy - ux * ux - uy * uy
-            theta = 0.25 * torch.atan2(num, den)
-            c = torch.cos(theta)
-            s = torch.sin(theta)
+            c, s = _joint_angle(X, Y, p, q)
             _givens_apply_(X, p, q, c, s)
             _givens_apply_(Y, p, q, c, s)
             _rot_apply_right_(V, p, q, c, s)
-    x = torch.diagonal(X, dim1=-2, dim2=-1)
-    y = torch.diagonal(Y, dim1=-2, dim2=-1)
-    return x, y, V
+    return torch.diagonal(X, dim1=-2, dim2=-1), torch.diagonal(Y, dim1=-2, dim2=-1), V
+
+
+def joint_diag(X: torch.Tensor, Y: torch.Tensor, sweeps: int = 12):
+    """Jointly diagonalize commuting real symmetric (..., n, n) matrices.
+
+    Returns (x, y, V) with X = V diag(x) V^T and Y = V diag(y) V^T. The
+    inputs are not modified. Where an input requires grad the rotations are
+    made out of place, so that autograd sees them; else in place."""
+    if torch.is_grad_enabled() and (X.requires_grad or Y.requires_grad):
+        return _joint_diag_out_of_place(X, Y, sweeps)
+    return _joint_diag_in_place(X, Y, sweeps)
 
 
 _HALF_PI = 1.5707963267948966

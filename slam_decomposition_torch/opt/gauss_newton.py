@@ -278,7 +278,7 @@ def takes_kernels(chain_gates, residual="phase", final_cost_fn=None, lower=None)
 
 
 def make_solver(
-    eval_fn, n_params: Optional[int] = None, adam_iters: int = 100, lm_iters: int = 6, lm32_iters: int = 8,
+    eval_fn: Callable, n_params: int, adam_iters: int = 100, lm_iters: int = 6, lm32_iters: int = 8,
     adam_lr: float = 0.1, lower=None, upper=None, residual: str = "phase",
     final_cost_fn: Optional[Callable] = None, chain_gates=None, device=DEFAULT_DEVICE,
 ):
@@ -301,13 +301,8 @@ def make_solver(
     three CUDA kernels on CUDA tensors, their plain versions on CPU
     tensors). Everything else, a chain of depth 5 or more included (its
     n = 36 parameters outnumber a warp's threads), takes the general path
-    (``GeneralSolver``), the same algorithm in plain PyTorch.
-
-    ``make_solver(chain_gates, device=...)``, with the (k, 4, 4) array in
-    ``eval_fn``'s place, builds the ``ChainSolver`` of that chain."""
+    (``GeneralSolver``), the same algorithm in plain PyTorch."""
     iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr)
-    if not callable(eval_fn):  # the chain's constants alone
-        return ChainSolver(eval_fn, device, **iters)
     if takes_kernels(chain_gates, residual, final_cost_fn, lower):
         return ChainSolver(chain_gates, device, **iters)
     return GeneralSolver(

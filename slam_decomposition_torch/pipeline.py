@@ -22,7 +22,7 @@ from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
-from slam_decomposition_torch.opt.gauss_newton import make_solver
+from slam_decomposition_torch.opt.gauss_newton import ChainSolver
 from slam_decomposition_torch.opt.samplers import haar_sample
 
 RESCUE_ROUNDS = 3
@@ -95,7 +95,7 @@ def decompose_haar(
     device = resolve_device(device)
     coverage = load_coverage(gates.cg_sqiswap())
     solvers = {
-        k: make_solver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)
+        k: ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)
         for k in KS
     }
     T = torch.as_tensor(haar_sample(B, seed=seed)).to(device)

@@ -14,15 +14,15 @@ from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.samplers import haar_sample
 
 
-def kernel_inputs(k: int, targets: int, restarts: int, dev) -> dict:
-    """For the depth-k sqiSwap chain: ``g64`` / ``g32`` the gates, ``T``
+def kernel_inputs(k: int, targets: int, restarts: int, dev, gate=None) -> dict:
+    """For the depth-k chain of ``gate`` (default sqiSwap): ``g64`` / ``g32`` the gates, ``T``
     (targets, 4, 4) complex128 Haar targets (seed 1000 + k; at depth 1, which
     reaches no Haar target, the chain at uniform parameters from a device
     generator of seed 1000 + k), ``lanes_t`` the
     targets in complex64 repeated per restart, ``x0`` (targets * restarts, n)
     f32 uniform in [0, 2 pi) (device generator, seed k) and ``sched`` the
     Adam schedule, all on ``dev``."""
-    a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    a = build_ansatz(cycle_gates([gates.SQISWAP if gate is None else gate], k))
     g64 = torch.as_tensor(a.chain_gates).to(dev)
     if k == 1:
         tgen = torch.Generator(device=dev)

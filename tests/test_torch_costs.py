@@ -89,10 +89,10 @@ def test_joint_diag_out_of_place_is_the_in_place_one():
     M = tweyl.to_magic(tweyl.su4_normalize(torch.as_tensor(haar_sample(B, seed=5)))[0])
     m = M.transpose(-2, -1) @ M
     a = teig.joint_diag(m.real, m.imag)
-    b = teig.joint_diag(m.real, m.imag, out_of_place=True)
+    b = teig._joint_diag_out_of_place(m.real, m.imag, sweeps=12)
     for u, v in zip(a, b):
         np.testing.assert_allclose(u.numpy(), v.numpy(), atol=1e-13)
-    # the default: out of place exactly when an input requires grad
+    # joint_diag goes out of place exactly when an input requires grad
     X = m.real.clone().requires_grad_(True)
     x, _, _ = teig.joint_diag(X, m.imag)
     x.sum().backward()

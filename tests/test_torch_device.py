@@ -26,7 +26,7 @@ ANSATZ = build_ansatz(cycle_gates([gates.SQISWAP], 2))
 CHAIN = ANSATZ.chain_gates
 ENTRY_POINTS = {
     "decompose_haar": lambda: decompose_haar(B=8, chunk=8, restarts=1),
-    "make_solver": lambda: make_solver(CHAIN),
+    "make_solver": lambda: make_solver(ANSATZ.eval_fn, ANSATZ.n_params),
     "make_solver(eval_fn, kernel path)": lambda: make_solver(ANSATZ.eval_fn, ANSATZ.n_params, chain_gates=CHAIN),
     "make_solver(eval_fn, general path)": lambda: make_solver(ANSATZ.eval_fn, ANSATZ.n_params, residual="makhlin"),
     "ChainSolver": lambda: ChainSolver(CHAIN),

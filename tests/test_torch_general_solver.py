@@ -141,8 +141,8 @@ def test_routing_by_rule():
     # a template without chain_gates (rz layers) cannot take the kernels
     v = build_ansatz(cycle_gates([gates.CNOT], 2), vz_only=True)
     assert isinstance(make_solver(v.eval_fn, v.n_params, chain_gates=v.chain_gates, device="cpu"), GeneralSolver)
-    # the chain's constants alone still build the kernel path
-    assert isinstance(make_solver(a.chain_gates, device="cpu"), ChainSolver)
+    # without the chain's constants a chain takes the general path
+    assert isinstance(make_solver(a.eval_fn, a.n_params, device="cpu"), GeneralSolver)
 
 
 @pytest.mark.parametrize("k", [1, 4, 5])

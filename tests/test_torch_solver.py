@@ -18,7 +18,7 @@ from slam_decomposition_tpu.ops import cplx as jcplx
 from slam_decomposition_tpu.opt.gauss_newton import make_solver as jmake_solver
 from slam_decomposition_tpu.opt.samplers import haar_sample
 
-from slam_decomposition_torch.opt.gauss_newton import make_solver
+from slam_decomposition_torch.opt.gauss_newton import ChainSolver
 from slam_decomposition_torch.pipeline import decompose_haar
 
 B, R = 16, 4
@@ -31,7 +31,7 @@ def test_solve_certifies_the_same_targets_as_jax(k):
     x0 = np.random.default_rng(k).uniform(0, 2 * np.pi, (B, R, ja.n_params))
     js = jax.jit(jmake_solver(ja.eval_fn, ja.n_params, chain_gates=ja.chain_gates, adam_backend="xla"))
     _, lj = js(jnp.asarray(x0), jcplx.from_numpy(T))
-    solver = make_solver(ja.chain_gates, device="cpu")
+    solver = ChainSolver(ja.chain_gates, device="cpu")
     xt, lt = solver.solve(torch.as_tensor(x0), torch.as_tensor(T))
     lj, lt = np.asarray(lj), lt.numpy()
     flips = int(((lj <= 1e-10) != (lt <= 1e-10)).sum())
@@ -52,7 +52,7 @@ def test_solve_polishes_the_restart_of_smallest_lm_residual(monkeypatch):
     ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], 2))
     T = torch.as_tensor(haar_sample(4, seed=7))
     x0 = torch.as_tensor(np.random.default_rng(7).uniform(0, 2 * np.pi, (4, R, ja.n_params)))
-    solver = make_solver(ja.chain_gates, device="cpu")
+    solver = ChainSolver(ja.chain_gates, device="cpu")
     seen = {}
     polish = ck.polish_chain
 
