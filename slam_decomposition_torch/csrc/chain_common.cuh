@@ -319,6 +319,26 @@ inline cudaError_t use_device_of(const void* ptr) {
   if (attr.type != cudaMemoryTypeDevice) return cudaErrorInvalidValue;
   return cudaSetDevice(attr.device);
 }
+
+// A block's shared memory, described by a struct S of its gate lists and
+// lane workspaces. A kernel may declare at most 48 KB; where S is larger
+// (the deep chains' Adam and polish blocks) the block takes S as dynamic
+// shared memory, found at dynamic_smem<S>(): the launch passes kDynSmem<S>
+// bytes after allow_smem<S> has raised the kernel's limit to them. A block
+// that fits declares its arrays as before (one struct in their place gave
+// Adam's K <= 4 instances other registers).
+constexpr size_t kStaticSmemMax = 48 * 1024;
+template <class S> constexpr size_t kDynSmem = sizeof(S) <= kStaticSmemMax ? 0 : sizeof(S);
+
+template <class S> __device__ __forceinline__ S& dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char dyn_smem_bytes[];
+  return *reinterpret_cast<S*>(dyn_smem_bytes);
+}
+
+template <class S, class Kernel> cudaError_t allow_smem(Kernel* kernel) {
+  if constexpr (kDynSmem<S> == 0) return cudaSuccess;
+  else return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDynSmem<S>);
+}
 #endif
 
 }  // namespace slam

@@ -36,13 +36,14 @@ template <typename R, int K> static void lm_k(const R* x0, const R* tgt, const R
   for (int lane = 0; lane < (L + kLmLanes - 1) / kLmLanes * kLmLanes; ++lane)
     lm_team_io<R, K>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
 }
-// the instance of depth k (1..4); Adam's with the cost when fout is given
+// the instance of depth k (1..6); Adam's with the cost when fout is given
 template <int K> static void adam_any(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int L, float* xout, float* fout) {
   if (fout) adam_k<K, true>(x0, tgt, gates, sched, iters, L, xout, fout);
   else adam_k<K, false>(x0, tgt, gates, sched, iters, L, xout, fout);
 }
 #define SLAM_BY_K(k, call) \
-  switch (k) { case 1: call(1); break; case 2: call(2); break; case 3: call(3); break; case 4: call(4); break; }
+  switch (k) { case 1: call(1); break; case 2: call(2); break; case 3: call(3); break; case 4: call(4); break; \
+               case 5: call(5); break; case 6: call(6); break; }
 extern "C" {
 // fout may be null: then the instance without the final cost runs
 void adam_host(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int k, int L, float* xout, float* fout) {

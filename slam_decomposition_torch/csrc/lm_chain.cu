@@ -24,7 +24,11 @@
 // keeps one row of A in registers and owns one row of the CG vectors; dot
 // products are butterfly shuffles. A rejected step reuses J, A and b. The
 // gate products skip sqiSwap's zeros (chain_common.cuh GateNz). 40000 lanes
-// are 10000 blocks, many waves, so the last wave's tail is small.
+// are 10000 blocks, many waves, so the last wave's tail is small. At
+// K = 5, 6 (n = 36, 42 parameters, more than a warp's threads) a thread
+// owns two columns of J and two CG entries, and CG multiplies by J^T J
+// through J without forming it (lm_team.cuh); a block's gate lists and
+// workspaces (35 / 41 KB) stay static shared memory.
 
 #include "lm_team.cuh"
 
@@ -33,12 +37,15 @@ namespace {
 constexpr int kLanes = 4;  // lanes (warps) per block
 constexpr int kThreads = kLanes * slam::kLmTeam;
 // resident blocks per SM the register budget must allow: 5 caps a thread
-// at 96 registers (20 warps per SM) without spills at every K (1..4); 6
-// (80) spills
-constexpr int kMinBlocks = 5;
+// at 96 registers (20 warps per SM) without spills at K = 1..4; 6 (80)
+// spills. The wide instances (K = 5, 6) spill 8 B at 96 and take 4 (122
+// registers used, 16 warps).
+template <int K> constexpr int kMinBlocks = K >= 5 ? 4 : 5;
+// shared memory a block: the gate lists and the lanes' workspaces
+template <int K> constexpr int kSmem = K * sizeof(slam::GateNz<float>) + kLanes * sizeof(slam::LmWs<float, K>);
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
     lm_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                     const float* __restrict__ gates, int iters, int L,
                     float* __restrict__ xout, float* __restrict__ fout) {
@@ -53,14 +60,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                              fout);
 }
 
-template <int K> cudaError_t occupancy(int* blocks) {
+template <int K> cudaError_t occupancy(int* blocks, int* smem) {
+  *smem = kSmem<K>;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lm_chain_kernel<K>, kThreads, 0);
 }
 
 }  // namespace
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64
-// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, 2, 3 or 4.
+// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, ..., 6.
 extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void* gates,
                                      int iters, int k, int L, void* xout, void* fout,
                                      void* stream) {
@@ -78,17 +86,23 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
   else if (k == 2) lm_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else if (k == 3) lm_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else if (k == 4) lm_chain_kernel<4><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 5) lm_chain_kernel<5><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
+  else if (k == 6) lm_chain_kernel<6><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// resident blocks per SM of the k-instance on the current device, and its
-// threads per block
-extern "C" cudaError_t slam_lm_chain_occupancy(int k, int* blocks, int* threads) {
+// resident blocks per SM of the k-instance on the current device, its
+// threads per block, its shared memory a block and whether that is dynamic
+// (never, here)
+extern "C" cudaError_t slam_lm_chain_occupancy(int k, int* blocks, int* threads, int* smem, int* dynamic) {
   *threads = kThreads;
-  if (k == 1) return occupancy<1>(blocks);
-  if (k == 2) return occupancy<2>(blocks);
-  if (k == 3) return occupancy<3>(blocks);
-  if (k == 4) return occupancy<4>(blocks);
+  *dynamic = 0;
+  if (k == 1) return occupancy<1>(blocks, smem);
+  if (k == 2) return occupancy<2>(blocks, smem);
+  if (k == 3) return occupancy<3>(blocks, smem);
+  if (k == 4) return occupancy<4>(blocks, smem);
+  if (k == 5) return occupancy<5>(blocks, smem);
+  if (k == 6) return occupancy<6>(blocks, smem);
   return cudaErrorInvalidValue;
 }

@@ -28,6 +28,16 @@
 //           the two dot products are butterfly sums;
 //   residual: thread e builds r_e; ||r||^2 is a butterfly sum in R.
 //
+// Wide chains (K >= 5: n = 36, 42 parameters, more than the team's 32
+// threads): thread t owns parameters t and t + 32 (the second only for
+// t < n - 32) in J's columns, b and CG. A is not built: two rows of n
+// entries a thread would not fit in registers, and A in shared memory
+// would halve the lanes an SM holds. CG multiplies by it as
+// (A + lam I) p = J^T (J p) + lam p from J, which stays in shared memory:
+// thread e forms (J p)_e from row e of J, then each thread its entries of
+// J^T (J p) from its columns. That is A p up to f32 rounding (the plain
+// version forms A), at 2 * 32 n multiply-adds a CG iteration against n^2.
+//
 // With R = float the trial residual comes from the f32 chain parts of the
 // trial point, which are then those J needs if the step is accepted. With
 // R = double the trial residual needs only the chain itself in f64
@@ -68,7 +78,7 @@ template <typename R, int K> struct LmWs : LmHi<R, K> {
   alignas(16) float J[32][NP];  // J[e][p] = d r_e / d x_p
   alignas(16) float p[2][NP];   // CG direction, double-buffered
   float x[N], xn[N];          // parameters, trial parameters
-  float r[32], rn[32];        // residual of x, of the trial point, as f32
+  alignas(16) float r[32], rn[32];  // residual of x, of the trial point, as f32 (rn: J p in a wide CG)
   C<float> T[16];             // target
   C<float> P[K + 1][MS];      // prefix products (of the last f32 chain built)
   C<float> S[K + 1][MS];      // suffix products
@@ -77,10 +87,14 @@ template <typename R, int K> struct LmWs : LmHi<R, K> {
   Trig<float> trig[NT];       // u3 factors of the last f32 chain built
 };
 
+// parameters a thread owns (t, t + 32, ...) for n = 6(K+1) parameters
+template <int K> constexpr int kLmSlots = (6 * (K + 1) + kLmTeam - 1) / kLmTeam;
+
 template <typename R, int K> struct LmThread {
-  static constexpr int N = 6 * (K + 1);
-  float arow[N];          // row t of A = J^T J
-  float b, xc, rc, pc, ap;  // CG: right-hand side, x, r, p, (A + lam I) p of this row
+  static constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
+  float arow[S == 1 ? N : 1];  // row t of A = J^T J (a wide chain's CG does not build A)
+  // CG of parameter t + 32 s: right-hand side, x, r, p, (A + lam I) p
+  float b[S], xc[S], rc[S], pc[S], ap[S];
   float rs;               // uniform across the team
   int shift;              // the polish's CG runs on b 2^-shift (uniform)
   R f0, lam;              // uniform across the team
@@ -288,7 +302,7 @@ template <int N> SLAM_HD void axpy_row(float a, const float* row, float* acc) {
 // Ends with the final accepted ||r||^2 in every thread's f0.
 template <typename R, int K, class Team>
 SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
-  constexpr int N = 6 * (K + 1);
+  constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
   constexpr bool kF64 = std::is_same_v<R, double>;
   if constexpr (kF64) {
     lm_residual_f64<K>(tm, ws, ws.xd, GR, ws.r);
@@ -308,37 +322,57 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
     if (tm.any().fresh) {  // uniform
       if constexpr (kF64) {  // the f32 chain parts at float(x), and their phase
         SLAM_EACH(tm, t) {
-          if (t < N) ws.x[t] = (float)ws.xd[t];
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            if (t + kLmTeam * s < N) ws.x[t + kLmTeam * s] = (float)ws.xd[t + kLmTeam * s];
         }
         tm.sync();
         lm_chain_parts<R, K>(tm, ws, ws.x, G);
         SLAM_EACH(tm, t) lm_phase(ws, tm.th(t));
       }  // else the chain parts in ws are those of x already
       SLAM_EACH(tm, t) {
-        if (t < N) lm_jacobian_column<R, K>(t, ws, tm.th(t));
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (t + kLmTeam * s < N) lm_jacobian_column<R, K>(t + kLmTeam * s, ws, tm.th(t));
       }
       tm.sync();
       SLAM_EACH(tm, t) {
         LmThread<R, K>& th = tm.th(t);
-        float b = 0.f;
+        if constexpr (S == 1) {  // row t of A and b_t
+          float b = 0.f;
 #pragma unroll
-        for (int j = 0; j < N; ++j) th.arow[j] = 0.f;
-        if (t < N) {
+          for (int j = 0; j < N; ++j) th.arow[j] = 0.f;
+          if (t < N) {
 #pragma unroll 2
-          for (int e = 0; e < 32; ++e) {
-            const float a = ws.J[e][t];
-            axpy_row<N>(a, ws.J[e], th.arow);
-            b += a * ws.r[e];
+            for (int e = 0; e < 32; ++e) {
+              const float a = ws.J[e][t];
+              axpy_row<N>(a, ws.J[e], th.arow);
+              b += a * ws.r[e];
+            }
+          }
+          th.b[0] = -b;
+        } else {  // b alone
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int p = t + kLmTeam * s;
+            float b = 0.f;
+            if (p < N) {
+              for (int e = 0; e < 32; ++e) b += ws.J[e][p] * ws.r[e];
+            }
+            th.b[s] = -b;
           }
         }
-        th.b = -b;
       }
     }
-    SLAM_EACH(tm, t) tm.th(t).part[0] = tm.th(t).b * tm.th(t).b;
-    tm.sum(&LmThread<R, K>::part);
-    SLAM_EACH(tm, t) {  // CG from 0; threads t >= N carry zeros
+    SLAM_EACH(tm, t) {
       LmThread<R, K>& th = tm.th(t);
-      float b = th.b;
+      th.part[0] = th.b[0] * th.b[0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) th.part[0] += th.b[s] * th.b[s];
+    }
+    tm.sum(&LmThread<R, K>::part);
+    SLAM_EACH(tm, t) {  // CG from 0; parameters p >= N carry zeros
+      LmThread<R, K>& th = tm.th(t);
       th.rs = th.part[0];
       if constexpr (kF64) {
         // Near convergence b^T b falls to 1e-26 and below, and CG takes it
@@ -347,30 +381,61 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
         // and exact under a power of two, so it runs on b 2^-s with
         // b^T b 2^-2s in [1/2, 4), and dx is scaled back in f64.
         th.shift = th.rs > 0.f && th.rs <= kF32Max ? ilogbf(th.rs) / 2 : 0;
-        b = ldexpf(b, -th.shift);
         th.rs = ldexpf(th.rs, -2 * th.shift);
       }
-      th.xc = 0.f;
-      th.rc = b;
-      th.pc = b;
-      if (t < N) ws.p[0][t] = b;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float b = th.b[s];  // th.b stays unscaled: a rejected step reuses it
+        if constexpr (kF64) b = ldexpf(b, -th.shift);
+        th.xc[s] = 0.f;
+        th.rc[s] = b;
+        th.pc[s] = b;
+        if (t + kLmTeam * s < N) ws.p[0][t + kLmTeam * s] = b;
+      }
     }
     tm.sync();
 #pragma unroll 1
     for (int c = 0; c < N + kCgExtra; ++c) {
+      const float* p = ws.p[c & 1];
+      if constexpr (S > 1) {  // (J p)_t into rn: the trial residual's slot is free during CG
+        SLAM_EACH(tm, t) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j4 = 0; j4 < (N + 3) / 4; ++j4) {
+            const F4 a = f4(ws.J[t] + 4 * j4), q = f4(p + 4 * j4);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (4 * j4 + u < N) acc += a.v[u] * q.v[u];
+          }
+          ws.rn[t] = acc;
+        }
+        tm.sync();
+      }
       SLAM_EACH(tm, t) {
         LmThread<R, K>& th = tm.th(t);
-        const float* p = ws.p[c & 1];
-        float acc = (float)th.lam * th.pc;
 #pragma unroll
-        for (int j4 = 0; j4 < (N + 3) / 4; ++j4) {
-          const F4 q = f4(p + 4 * j4);
+        for (int s = 0; s < S; ++s) {
+          float acc = (float)th.lam * th.pc[s];
+          if constexpr (S == 1) {  // row t of A times p
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (4 * j4 + u < N) acc += th.arow[4 * j4 + u] * q.v[u];
+            for (int j4 = 0; j4 < (N + 3) / 4; ++j4) {
+              const F4 q = f4(p + 4 * j4);
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (4 * j4 + u < N) acc += th.arow[4 * j4 + u] * q.v[u];
+            }
+          } else {  // column t + 32 s of J times J p
+            const int col = t + kLmTeam * s < N ? t + kLmTeam * s : 0;
+#pragma unroll
+            for (int e4 = 0; e4 < 8; ++e4) {
+              const F4 q = f4(ws.rn + 4 * e4);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) acc += ws.J[4 * e4 + u][col] * q.v[u];
+            }
+          }
+          th.ap[s] = t + kLmTeam * s < N ? acc : 0.f;
+          th.part[0] = s == 0 ? th.pc[s] * th.ap[s] : th.part[0] + th.pc[s] * th.ap[s];
         }
-        th.ap = t < N ? acc : 0.f;
-        th.part[0] = th.pc * th.ap;
       }
       tm.sum(&LmThread<R, K>::part);
       SLAM_EACH(tm, t) {
@@ -378,30 +443,41 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
         // guards keep NaN (as torch.clamp_min does) but lift 0 and underflow
         const float pAp = th.part[0];
         const float alpha = th.rs / (pAp < kF32Tiny ? kF32Tiny : pAp);
-        th.xc += alpha * th.pc;
-        th.rc -= alpha * th.ap;
-        th.part[0] = th.rc * th.rc;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          th.xc[s] += alpha * th.pc[s];
+          th.rc[s] -= alpha * th.ap[s];
+          th.part[0] = s == 0 ? th.rc[s] * th.rc[s] : th.part[0] + th.rc[s] * th.rc[s];
+        }
       }
       tm.sum(&LmThread<R, K>::part);
       SLAM_EACH(tm, t) {
         LmThread<R, K>& th = tm.th(t);
         const float rs_new = th.part[0];
         const float beta = rs_new / (th.rs < kF32Tiny ? kF32Tiny : th.rs);
-        th.pc = th.rc + beta * th.pc;
         th.rs = rs_new;
-        if (t < N) ws.p[(c + 1) & 1][t] = th.pc;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          th.pc[s] = th.rc[s] + beta * th.pc[s];
+          if (t + kLmTeam * s < N) ws.p[(c + 1) & 1][t + kLmTeam * s] = th.pc[s];
+        }
       }
       tm.sync();
     }
     if constexpr (kF64) {
       SLAM_EACH(tm, t) {
-        if (t < N) ws.xnd[t] = ws.xd[t] + ldexp((double)tm.th(t).xc, tm.th(t).shift);
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (t + kLmTeam * s < N)
+            ws.xnd[t + kLmTeam * s] = ws.xd[t + kLmTeam * s] + ldexp((double)tm.th(t).xc[s], tm.th(t).shift);
       }
       tm.sync();
       lm_residual_f64<K>(tm, ws, ws.xnd, GR, ws.rn);
     } else {
       SLAM_EACH(tm, t) {
-        if (t < N) ws.xn[t] = ws.x[t] + tm.th(t).xc;
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (t + kLmTeam * s < N) ws.xn[t + kLmTeam * s] = ws.x[t + kLmTeam * s] + tm.th(t).xc[s];
       }
       tm.sync();
       lm_chain_parts<R, K>(tm, ws, ws.xn, G);
@@ -412,10 +488,14 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
       const R fn = th.sq[0];
       th.fresh = fn < th.f0;  // a NaN trial step is "not improved"
       if (th.fresh) {
-        if constexpr (kF64) {
-          if (t < N) ws.xd[t] = ws.xnd[t];
-        } else {
-          if (t < N) ws.x[t] = ws.xn[t];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int p = t + kLmTeam * s;
+          if constexpr (kF64) {
+            if (p < N) ws.xd[p] = ws.xnd[p];
+          } else {
+            if (p < N) ws.x[p] = ws.xn[p];
+          }
         }
         ws.r[t] = ws.rn[t];
         th.f0 = fn;
@@ -438,30 +518,40 @@ template <typename R, int K, class Team>
 SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR,
                         const R* __restrict__ x0, const R* __restrict__ tgt, int iters, int lane,
                         bool store, R* __restrict__ xout, R* __restrict__ fout) {
-  constexpr int N = 6 * (K + 1);
+  constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
   constexpr bool kF64 = std::is_same_v<R, double>;
   SLAM_EACH(tm, t) {
     const R* tg = tgt + 32 * (size_t)lane;
     if constexpr (kF64) {
-      if (t < N) {
-        const double v = x0[(size_t)lane * N + t];
-        ws.xd[t] = v - kFourPi * rint(v / kFourPi);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int p = t + kLmTeam * s;
+        if (p < N) {
+          const double v = x0[(size_t)lane * N + p];
+          ws.xd[p] = v - kFourPi * rint(v / kFourPi);
+        }
       }
       if (t < 16) {
         ws.Td[t] = cmk(tg[2 * t], tg[2 * t + 1]);
         ws.T[t] = cmk((float)tg[2 * t], (float)tg[2 * t + 1]);
       }
     } else {
-      if (t < N) ws.x[t] = x0[(size_t)lane * N + t];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (t + kLmTeam * s < N) ws.x[t + kLmTeam * s] = x0[(size_t)lane * N + t + kLmTeam * s];
       if (t < 16) ws.T[t] = cmk(tg[2 * t], tg[2 * t + 1]);
     }
   }
   tm.sync();
   lm_team<R, K>(tm, ws, G, GR, iters);
   SLAM_EACH(tm, t) {
-    if (store && t < N) {
-      if constexpr (kF64) xout[(size_t)lane * N + t] = ws.xd[t];
-      else xout[(size_t)lane * N + t] = ws.x[t];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int p = t + kLmTeam * s;
+      if (store && p < N) {
+        if constexpr (kF64) xout[(size_t)lane * N + p] = ws.xd[p];
+        else xout[(size_t)lane * N + p] = ws.x[p];
+      }
     }
     if (store && t == 0) fout[lane] = tm.th(t).f0;
   }

@@ -30,7 +30,12 @@
 // right-hand side leaves f32's normal range (b^T b ~ 1e-26 and falling),
 // where every division takes its slow path, so the polish runs CG on b
 // scaled by a power of two (exact; lm_team.cuh). 10000 lanes are 2500
-// blocks, 3.8 waves at 5 resident blocks.
+// blocks, 3.8 waves at 5 resident blocks. At K = 5, 6 (n = 36, 42
+// parameters) a thread owns two columns of J and two CG entries, and CG
+// multiplies by J^T J through J without forming it (lm_team.cuh). The
+// K = 6 block (gate lists and four workspaces, 54 KB) is past the 48 KB of
+// static shared memory and takes it as dynamic shared memory: 4 blocks, 16
+// warps an SM, as the K = 5 block's 46 KB allows.
 
 #include "lm_team.cuh"
 
@@ -42,17 +47,22 @@ constexpr int kThreads = kLanes * slam::kLmTeam;
 // at 96 registers (20 warps per SM) and still builds without spills; at 4
 // (118 / 125 registers used, 16 warps) the kernel ran 3-6% slower on an H100.
 // At K = 4 (a row of A has 30 entries) it spills 12 B at 96 and takes 4
-// (121 registers used, 16 warps).
+// (121 registers used, 16 warps); at K = 5, 6 shared memory allows no more
+// than 4 blocks either.
 template <int K> constexpr int kMinBlocks = K >= 4 ? 4 : 5;
 
+template <int K> struct Smem {
+  slam::GateNz<float> G[K];
+  slam::GateNz<double> Gd[K];
+  slam::LmWs<double, K> ws[kLanes];
+};
+
 template <int K>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
-    polish_chain_kernel(const double* __restrict__ x0, const double* __restrict__ tgt,
-                        const double* __restrict__ gates, int iters, int L,
-                        double* __restrict__ xout, double* __restrict__ fout) {
-  __shared__ slam::GateNz<float> sG[K];
-  __shared__ slam::GateNz<double> sGd[K];
-  __shared__ slam::LmWs<double, K> ws[kLanes];
+__device__ __forceinline__ void polish_block(slam::GateNz<float>* sG, slam::GateNz<double>* sGd,
+                                             slam::LmWs<double, K>* ws, const double* __restrict__ x0,
+                                             const double* __restrict__ tgt, const double* __restrict__ gates,
+                                             int iters, int L, double* __restrict__ xout,
+                                             double* __restrict__ fout) {
   for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) {
     slam::gate_nz_entry(gates, sG, idx);
     slam::gate_nz_entry(gates, sGd, idx);
@@ -65,14 +75,44 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
                               fout);
 }
 
-template <int K> cudaError_t occupancy(int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, polish_chain_kernel<K>, kThreads, 0);
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
+    polish_chain_kernel(const double* __restrict__ x0, const double* __restrict__ tgt,
+                        const double* __restrict__ gates, int iters, int L,
+                        double* __restrict__ xout, double* __restrict__ fout) {
+  if constexpr (sizeof(Smem<K>) <= slam::kStaticSmemMax) {
+    __shared__ slam::GateNz<float> sG[K];
+    __shared__ slam::GateNz<double> sGd[K];
+    __shared__ slam::LmWs<double, K> ws[kLanes];
+    polish_block<K>(sG, sGd, ws, x0, tgt, gates, iters, L, xout, fout);
+  } else {
+    Smem<K>& sm = slam::dynamic_smem<Smem<K>>();
+    polish_block<K>(sm.G, sm.Gd, sm.ws, x0, tgt, gates, iters, L, xout, fout);
+  }
+}
+
+template <int K>
+cudaError_t launch(dim3 grid, dim3 block, cudaStream_t s, const double* a, const double* t, const double* g,
+                   int iters, int L, double* xo, double* fo) {
+  cudaError_t err = slam::allow_smem<Smem<K>>(polish_chain_kernel<K>);
+  if (err != cudaSuccess) return err;
+  polish_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo);
+  return cudaGetLastError();
+}
+
+template <int K> cudaError_t occupancy(int* blocks, int* smem, int* dynamic) {
+  *smem = (int)sizeof(Smem<K>);
+  *dynamic = slam::kDynSmem<Smem<K>> > 0;
+  cudaError_t err = slam::allow_smem<Smem<K>>(polish_chain_kernel<K>);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, polish_chain_kernel<K>, kThreads,
+                                                       slam::kDynSmem<Smem<K>>);
 }
 
 }  // namespace
 
 // x0 (L, 6(k+1)) f64, tgt (L, 4, 4) complex128, gates (k, 4, 4) complex128
-// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, 2, 3 or 4.
+// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, ..., 6.
 extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const void* gates,
                                          int iters, int k, int L, void* xout, void* fout,
                                          void* stream) {
@@ -86,21 +126,28 @@ extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const 
   const double* g = static_cast<const double*>(gates);
   double* xo = static_cast<double*>(xout);
   double* fo = static_cast<double*>(fout);
-  if (k == 1) polish_chain_kernel<1><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
-  else if (k == 2) polish_chain_kernel<2><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
-  else if (k == 3) polish_chain_kernel<3><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
-  else if (k == 4) polish_chain_kernel<4><<<grid, block, 0, s>>>(a, t, g, iters, L, xo, fo);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  switch (k) {
+    case 1: return launch<1>(grid, block, s, a, t, g, iters, L, xo, fo);
+    case 2: return launch<2>(grid, block, s, a, t, g, iters, L, xo, fo);
+    case 3: return launch<3>(grid, block, s, a, t, g, iters, L, xo, fo);
+    case 4: return launch<4>(grid, block, s, a, t, g, iters, L, xo, fo);
+    case 5: return launch<5>(grid, block, s, a, t, g, iters, L, xo, fo);
+    case 6: return launch<6>(grid, block, s, a, t, g, iters, L, xo, fo);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// resident blocks per SM of the k-instance on the current device, and its
-// threads per block
-extern "C" cudaError_t slam_polish_chain_occupancy(int k, int* blocks, int* threads) {
+// resident blocks per SM of the k-instance on the current device, its
+// threads per block, its shared memory a block and whether that is dynamic
+extern "C" cudaError_t slam_polish_chain_occupancy(int k, int* blocks, int* threads, int* smem, int* dynamic) {
   *threads = kThreads;
-  if (k == 1) return occupancy<1>(blocks);
-  if (k == 2) return occupancy<2>(blocks);
-  if (k == 3) return occupancy<3>(blocks);
-  if (k == 4) return occupancy<4>(blocks);
-  return cudaErrorInvalidValue;
+  switch (k) {
+    case 1: return occupancy<1>(blocks, smem, dynamic);
+    case 2: return occupancy<2>(blocks, smem, dynamic);
+    case 3: return occupancy<3>(blocks, smem, dynamic);
+    case 4: return occupancy<4>(blocks, smem, dynamic);
+    case 5: return occupancy<5>(blocks, smem, dynamic);
+    case 6: return occupancy<6>(blocks, smem, dynamic);
+    default: return cudaErrorInvalidValue;
+  }
 }

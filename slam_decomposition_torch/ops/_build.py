@@ -35,7 +35,8 @@ SIGNATURES = {
     "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
-# kernel -> its occupancy query (k, *resident blocks per SM, *threads per block)
+# kernel -> its occupancy query (k, *resident blocks per SM, *threads per block,
+# *shared memory bytes a block, *whether that is dynamic shared memory)
 OCCUPANCY = {
     "adam_chain": "slam_adam_chain_occupancy",
     "lm_chain": "slam_lm_chain_occupancy",
@@ -115,7 +116,7 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in OCCUPANCY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.argtypes = [_I, *[ctypes.POINTER(_I)] * 4]
         fn.restype = ctypes.c_int
     lib.slam_error_string.argtypes = [ctypes.c_int]
     lib.slam_error_string.restype = ctypes.c_char_p
@@ -127,14 +128,17 @@ def error_string(err: int) -> str:
 
 
 def occupancy(kernel: str, k: int) -> dict:
-    """{"blocks", "threads", "warps"}: resident blocks per SM of the
-    kernel's k-instance on the current device (the CUDA occupancy
-    calculator), its threads per block, and the resident warps per SM."""
-    blocks, threads = _I(0), _I(0)
-    err = getattr(load(), OCCUPANCY[kernel])(k, ctypes.byref(blocks), ctypes.byref(threads))
+    """{"blocks", "threads", "warps", "smem", "dynamic"}: resident blocks per
+    SM of the kernel's k-instance on the current device (the CUDA occupancy
+    calculator), its threads per block, the resident warps per SM, its
+    shared memory a block in bytes and whether that is dynamic shared
+    memory (a block's workspace past the 48 KB a kernel may declare)."""
+    blocks, threads, smem, dynamic = _I(0), _I(0), _I(0), _I(0)
+    err = getattr(load(), OCCUPANCY[kernel])(k, *map(ctypes.byref, (blocks, threads, smem, dynamic)))
     if err != 0:
         raise RuntimeError(f"{OCCUPANCY[kernel]}(k={k}) failed: {error_string(err)} ({err})")
-    return {"blocks": blocks.value, "threads": threads.value, "warps": blocks.value * threads.value // 32}
+    return {"blocks": blocks.value, "threads": threads.value, "warps": blocks.value * threads.value // 32,
+            "smem": smem.value, "dynamic": bool(dynamic.value)}
 
 
 def ptxas_summary(report: str) -> dict:

@@ -249,14 +249,19 @@ class ChainSolver:
         general = GeneralSolver(lambda x: chain_unitary(x, g), self.n_params, device=self.device, **self._iters)
         return general.with_history(x0s, tgt)
 
-    def polish(self, x: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-        """f64 LM only, from an already good x (B, n) -> (B, n)."""
-        return ck.polish_chain(x, tgt.contiguous(), self.gates64, self.lm_iters)[0]
+    def polish(self, x: torch.Tensor, tgt: torch.Tensor, iters: Optional[int] = None) -> torch.Tensor:
+        """f64 LM only, from an already good x (B, n) -> (B, n): ``iters``
+        iterations (default ``lm_iters``; JAX ``solve.polish``), none at
+        0."""
+        return self.polish_cert(x, tgt, iters)[0]
 
-    def polish_cert(self, x: torch.Tensor, tgt: torch.Tensor):
-        """polish + certified losses from the final accepted residual."""
-        xs, f = ck.polish_chain(x, tgt.contiguous(), self.gates64, self.lm_iters)
-        return xs, certificate(f)
+    def polish_cert(self, x: torch.Tensor, tgt: torch.Tensor, iters: Optional[int] = None):
+        """polish + certified losses from the final accepted residual; at
+        ``iters=0`` x is returned as it is, with the certificate of its
+        residual."""
+        iters = self.lm_iters if iters is None else iters
+        xs, f = ck.polish_chain(x, tgt.contiguous(), self.gates64, iters)
+        return (x if iters == 0 else xs), certificate(f)
 
     def certify(self, x: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         """The true f64 square cost of x against tgt."""
@@ -266,8 +271,9 @@ class ChainSolver:
 def takes_kernels(chain_gates, residual="phase", final_cost_fn=None, lower=None) -> bool:
     """The routing rule of ``make_solver``: a plain u3 chain (``chain_gates``
     given) of a depth the kernels are instantiated for
-    (``chain_kernels.KERNEL_KS``: n = 6(k+1) <= 32, one row of A per thread
-    of the LM's warp), the phase residual, the square cost, no bounds."""
+    (``chain_kernels.KERNEL_KS``, 1..6: n = 6(k+1) <= 42, at most two
+    parameters per thread of the LM's warp), the phase residual, the square
+    cost, no bounds."""
     return (
         chain_gates is not None
         and residual == "phase"
@@ -296,11 +302,11 @@ def make_solver(
 
     Routing, by rule and not by a failed launch (``takes_kernels``; JAX
     gauss_newton.py:278-284 routes the same templates to its Pallas
-    kernels): a plain chain of depth 1..4 with the phase residual, the
+    kernels): a plain chain of depth 1..6 with the phase residual, the
     square cost and no bounds takes the kernel path (``ChainSolver``: the
     three CUDA kernels on CUDA tensors, their plain versions on CPU
-    tensors). Everything else, a chain of depth 5 or more included (its
-    n = 36 parameters outnumber a warp's threads), takes the general path
+    tensors). Everything else, a chain of depth 7 or more included (the
+    kernels are instantiated for depths 1..6), takes the general path
     (``GeneralSolver``), the same algorithm in plain PyTorch."""
     iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr)
     if takes_kernels(chain_gates, residual, final_cost_fn, lower):

@@ -11,11 +11,15 @@ Which solver runs (``TemplateOptimizer._solver_for``):
 
 * ``method="auto"`` with the square or basic objective rides the phase
   residual, the reduced / Weyl / Makhlin objectives the Makhlin residual,
-  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..4
+  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..6
   under the square objective takes the three CUDA kernels, everything else
   the general solver in plain PyTorch;
-* any other objective, a cost ceiling (``constraint_max_cost``) or
-  ``method="lbfgs"`` takes the batched L-BFGS (``minimize.lbfgs``).
+* ``method="gauss_newton"`` takes the phase residual for an objective
+  without one, and with a cost ceiling too (which that path ignores, as the
+  JAX package's does);
+* any other objective, a cost ceiling (``constraint_max_cost``) under
+  ``method="auto"``, or ``method="lbfgs"`` takes the batched L-BFGS
+  (``minimize.lbfgs``), the ceiling as an exterior penalty.
 
 Random starts come from a ``torch.Generator`` on the CPU seeded by ``seed``
 and are then moved, so a result does not depend on the device. Only the
@@ -93,10 +97,11 @@ class TemplateOptimizer:
         self.device = resolve_device(device)
         if isinstance(basis, Ansatz):
             fixed = basis
-            self.basis = lambda k: fixed
+            self.builder = lambda k: fixed
             spanning_range = spanning_range or [fixed.k]
         else:
-            self.basis = basis  # k -> Ansatz
+            self.builder = basis  # k -> Ansatz (the JAX package's name)
+        self.basis = self.builder
         self.spanning_range = list(spanning_range or range(1, 6))
         self.objective = cost_lib.COSTS[objective] if isinstance(objective, str) else objective
         self.success_threshold = config.success_threshold if success_threshold is None else success_threshold
@@ -130,7 +135,7 @@ class TemplateOptimizer:
         """A store key from the template's content, the same in every
         process: the ansatz of the smallest k evaluated at a fixed probe,
         rounded to 8 decimals, hashed."""
-        a = self.basis(min(self.spanning_range))
+        a = self.builder(min(self.spanning_range))
         U = a.eval_fn(torch.linspace(0.1, 1.7, a.n_params, dtype=torch.float64)).numpy()
         payload = (  # + 0.0 turns -0.0 into 0.0: the same bytes for the same matrix
             (np.round(U.real, 8) + 0.0).tobytes()
@@ -141,7 +146,13 @@ class TemplateOptimizer:
 
     def _residual_for(self):
         """(residual, final_cost_fn) of the Adam + LM path for this
-        objective, or (None, None) where only L-BFGS serves."""
+        objective, or (None, None) where only L-BFGS serves. As in the JAX
+        package (its optimizer.py:153-173), ``method="gauss_newton"`` always
+        takes the Adam + LM path, on the phase residual where the objective
+        has none of its own or a cost ceiling is set; that path ignores the
+        ceiling."""
+        if self.method == "gauss_newton" and self.constraint_max_cost is not None:
+            return "phase", None
         if self.constraint_max_cost is not None or self.method not in ("auto", "gauss_newton"):
             return None, None
         if self.objective is cost_lib.COSTS["square"]:
@@ -244,7 +255,7 @@ class TemplateOptimizer:
         if self.preseed_store is not None or self.use_callback:
             target_coords = weyl.c1c2c3(tgt).cpu().numpy()
 
-        n_max = max(self.basis(k).n_params for k in ks)
+        n_max = max(self.builder(k).n_params for k in ks)
         best_loss = np.full(B, np.inf)
         best_x = np.zeros((B, n_max))
         best_k = np.full(B, -1, dtype=int)
@@ -261,7 +272,7 @@ class TemplateOptimizer:
             if not active.any():
                 continue
             t0 = time.perf_counter()
-            ansatz = self.basis(k)
+            ansatz = self.builder(k)
             solver, self.solver_paths[k] = self._solver_for(k, ansatz)
             x0s = self._init_params(gen, ansatz, B, self.training_restarts)
             if self.preseed_store is not None and len(self.preseed_store):

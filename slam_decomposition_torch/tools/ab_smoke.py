@@ -28,7 +28,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-KEEP = re.compile(r"^(NVIDIA |\[build\] (ptxas|occupancy)|\[bound\] |\[main\] |\[api\] |\[depth\] |\[general\] |"
+KEEP = re.compile(r"^(NVIDIA |\[build\] (ptxas|occupancy)|\[bound\] |\[main\] |\[api\] |\[frac\] |\[depth\] |\[general\] |"
                   r"\[parity\] adam_chain with_cost |\[transpile\] NVIDIA )")
 PARITY = re.compile(r"^\[parity\] (\S+) (.*?) L=(\d+):.*kernel ([\d.]+) ms, plain ([\d.]+) ms")
 

@@ -24,7 +24,7 @@ from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
 
-KS = [1, 2, 3, 4]  # every depth the kernels are instantiated for
+KS = [1, 2, 3, 4, 5, 6]  # every depth the kernels are instantiated for
 LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
 
 

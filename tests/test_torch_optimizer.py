@@ -129,13 +129,15 @@ def test_spanning_early_exit():
 
 
 def test_default_spanning_range_reaches_depth_5_without_error():
-    """The default range is 1..5: depth 5 routes to the general path by rule
-    (on any device), SWAP is solved at 3 and never gets there."""
+    """The default range is 1..5: every depth of it takes the kernel path by
+    rule (on any device; depths 1..6 are instantiated), SWAP is solved at 3
+    and never gets to 4 or 5; a chain of depth 7 takes the general path."""
     opt = _opt(_basis(gates.SQISWAP), training_restarts=3)
     assert opt.spanning_range == [1, 2, 3, 4, 5]
     res = opt.approximate_from_distribution(gates.SWAP.to_numpy())
     assert res.success.all() and res.cycles.tolist() == [3]
-    assert opt._solver_for(5, opt.basis(5))[1] == "general" and opt._solver_for(4, opt.basis(4))[1] == "kernels"
+    assert all(opt._solver_for(k, opt.basis(k))[1] == "kernels" for k in (4, 5, 6))
+    assert opt._solver_for(7, opt.basis(7))[1] == "general"
 
 
 def test_b_basis_haar_k2():
@@ -243,6 +245,41 @@ def test_objective_routing():
     assert mk(objective=lambda U, V: costs.square_cost(U, V))._residual_for() == (None, None)
     with pytest.raises(ValueError, match="MixedOrderBasisTemplate"):
         mk().cost_from_distribution(haar_sample(2, seed=0))
+
+
+def test_builder_is_the_k_to_ansatz_function():
+    """opt.builder is the k -> Ansatz function, as in the JAX package
+    (tests/test_optimizer.py calls opt.builder(3)); basis is its alias. A
+    fixed Ansatz gives a builder that returns it at every k."""
+    opt = _opt(_basis(gates.SQISWAP))
+    jopt = joptimizer.TemplateOptimizer(_jbasis(jgates.SQISWAP))
+    a, ja = opt.builder(3), jopt.builder(3)
+    assert a.k == ja.k == 3 and a.n_params == ja.n_params == 24 and opt.basis is opt.builder
+    x = np.random.default_rng(3).uniform(0, 2 * np.pi, a.n_params)
+    re, im = ja.eval_fn(jnp.asarray(x))
+    np.testing.assert_allclose(a.eval_fn(torch.as_tensor(x)).numpy(), np.asarray(re) + 1j * np.asarray(im), atol=1e-12)
+    fixed = build_ansatz(cycle_gates([gates.CNOT], 2))
+    assert _opt(fixed).builder(5) is fixed
+
+
+def test_gauss_newton_with_a_ceiling_takes_the_phase_path(monkeypatch):
+    """method="gauss_newton" with a cost ceiling: the JAX optimizer builds
+    the phase-residual Adam + LM solver and ignores the ceiling
+    (optimizer.py:153-173); so does the port (the kernel path for a plain
+    chain), with no L-BFGS run."""
+    from slam_decomposition_tpu.opt import gauss_newton as jgn
+
+    seen = []
+    make = jgn.make_solver
+    monkeypatch.setattr(jgn, "make_solver", lambda *a, **kw: seen.append(kw) or make(*a, **kw))
+    kw = dict(spanning_range=[2], training_restarts=3, method="gauss_newton", constraint_max_cost=0.5)
+    jopt = joptimizer.TemplateOptimizer(_jbasis(jgates.SQISWAP), override_fail=True, **kw)
+    jopt._make_solver(jopt.builder(2), 2, 3)  # built, not compiled
+    assert seen[0]["residual"] == "phase" and seen[0]["final_cost_fn"] is None
+    opt = _opt(_basis(gates.SQISWAP), **kw)
+    assert opt._residual_for() == ("phase", None)
+    res = opt.approximate_from_distribution(haar_exact_sample(2, 2, seed=3, device="cpu"))
+    assert opt.solver_paths == {2: "kernels"} and not opt.lbfgs_stats and res.success.all(), res.loss
 
 
 def test_cost_ceiling_is_an_exterior_penalty():
