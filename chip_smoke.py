@@ -8,9 +8,11 @@ Phases, one line each (more for the build report):
      nvcc, print the build seconds, ptxas registers / spills and the
      resident blocks and warps per SM (CUDA occupancy calculator) of each
      kernel instance (Adam with and without the cost, the LM and the polish
-     at k = 1..6) with its shared memory a block, static or dynamic; every
-     instance must build without spills and with no stack frame beyond the
-     math library's sincos scratch;
+     at k = 1..12: 48 instances) with its shared memory a block, static or
+     dynamic; every instance must build without spills and with no stack
+     frame beyond the math library's sincos scratch, and keep 12 warps per
+     SM resident, or every block its shared memory leaves room for where
+     that is fewer;
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
@@ -53,28 +55,37 @@ Phases, one line each (more for the build report):
      CPU's, then TemplateOptimizer over spanning_range [2..6] with each
      target's own range (its depth to 6), 5 restarts: every depth on the
      kernels, one launch of each per chunk solved at each depth, the success
-     share at least FRAC_SUCCESS_MIN, every loss <= 1e-10 confirmed in f64,
-     the seconds per depth; then the depth-5 chain through the kernels
-     against the general solver from the same starts, restart by restart,
-     and the kernels against their plain versions at the lanes the depth-5
-     and depth-6 runs launched;
-  8. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
+     share at least its limit (QUARTER_ISWAP), every loss <= 1e-10 confirmed
+     in f64, the seconds per depth; then the depth-5 chain through the
+     kernels against the general solver from the same starts, restart by
+     restart, and the kernels against their plain versions at the lanes the
+     depth-5 and depth-6 runs launched;
+  8. the eighth-iSwap basis, conversion_gain_gate(0, 0, 0, pi/16, 1), whose
+     templates run to depth 12, as phase 7 (EIGHTH_ISWAP): the depths of the
+     100000 targets on the card equal to the CPU's, the optimizer over each
+     target's range (its depth to 12) with every depth 2..12 on the kernels,
+     the chain through both solver paths at depth 8 (1000 depth-8 targets)
+     and depth 10 (500 targets of depth 9 or 10), and the kernels against
+     their plain versions at the lanes the depth-7..12 runs launched (a
+     chunk's at most);
+  9. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
      to 1000 targets (cycles 1, 2, 2, 3), the CNOT basis at depth 3 on
-     haar_sample(10000, seed=2), depths 4 to 7 on 500 Haar targets (4, 5, 6:
-     the kernels, 7: the general solver, by rule; the path of every depth is
-     printed), every run at exactly one launch of each kernel (or one call
-     of the general solver) per chunk, and the kernels against their plain
-     versions at these runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's
-     K = 3 at 50000 / 10000, K = 4, 5, 6 at 2500 / 500) with phase 3's
+     haar_sample(10000, seed=2), depths 4 to 13 on 500 Haar targets (4..12:
+     the kernels, 13: the general solver, by rule; the path of every depth
+     is printed), every run at exactly one launch of each kernel (or one
+     call of the general solver) per chunk, and the kernels against their
+     plain versions at these runs' lanes (K = 1 at 5000 / 1000, the CNOT
+     chain's K = 3 at 50000 / 10000, K = 4..12 at 2500 / 500) with phase 3's
      limits;
-  9. general solver on the card: the reduced and Makhlin objectives at depth
+ 10. general solver on the card: the reduced and Makhlin objectives at depth
      3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
      restarts), a free conversion-gain gate under bounds reaching CNOT at
      depth 1 from 256 restarts, and the chain template forced through the
      general solver against the kernel path from the same starts, restart
      by restart;
- 10. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 9), then the device line.
+ 11. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 10) and the whole run's seconds, then the device
+     line.
 
 Any failure exits non-zero before the result lines. There is no CPU path:
 without CUDA the script exits with status 1.
@@ -86,6 +97,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -140,17 +152,38 @@ GENERAL_CLASS_B, GENERAL_CLASS_THRESH, GENERAL_CLASS_MIN = 10_000, 1e-9, 0.99
 GENERAL_LBFGS_B, GENERAL_LBFGS_MIN = 2000, 0.99
 GENERAL_V2_RESTARTS = 256
 GENERAL_CHAIN_B, GENERAL_VERDICT_FRAC = 2000, 0.99
-# depths 4 to 7 on 500 Haar targets and the path each takes by rule
-DEPTH_DEEP = ((4, "kernels"), (5, "kernels"), (6, "kernels"), (7, "general"))
-# the quarter-iSwap phase: the depth histogram of haar_sample(B, seed=SEED)
-# (the port's monodromy_ks_batch on the CPU; the JAX package gives the same
-# depths on the first 300, tests/test_torch_fractional.py), the range of
-# depths, the success share's limit (readings in PERF.md) and the depth-5
-# targets taken through both solver paths
-FRAC_ANGLE, FRAC_DEPTHS = math.pi / 8, (2, 3, 4, 5, 6)
-FRAC_HIST = {2: 756, 3: 18734, 4: 76556, 5: 3937, 6: 17}
-FRAC_SUCCESS_MIN = 0.9999
-FRAC_CHAIN_B = 1000
+# depths 4 to 13 on 500 Haar targets and the path each takes by rule (the
+# kernels are instantiated for depths 1..12)
+DEPTH_DEEP = (*((k, "kernels") for k in range(4, 13)), (13, "general"))
+
+
+class Basis(NamedTuple):
+    """A fractional-iSwap basis phase: conversion_gain_gate(0, 0, 0, angle, 1)
+    templates over ``depths``; ``hist`` the monodromy depth histogram of
+    haar_sample(B, seed=SEED) (the port's monodromy_ks_batch on the CPU; the
+    JAX package gives the same depths, tests/test_torch_fractional.py and
+    tests/test_torch_eighth_iswap.py); ``success_min`` the success share's
+    limit (readings in PERF.md); ``chains`` (k, targets, least depth): the
+    depth-k chain through both solver paths on the first ``targets`` targets
+    whose monodromy depth lies in [least depth, k]; ``parity_ks`` the depths
+    whose kernels are held to their plain versions at the lanes this phase
+    launched."""
+
+    tag: str
+    name: str
+    angle: float
+    depths: tuple
+    hist: dict
+    success_min: float
+    chains: tuple
+    parity_ks: tuple
+
+
+QUARTER_ISWAP = Basis("frac", "quarter-iSwap", math.pi / 8, (2, 3, 4, 5, 6),
+                      {2: 756, 3: 18734, 4: 76556, 5: 3937, 6: 17}, 0.9999, ((5, 1000, 5),), (5, 6))
+EIGHTH_ISWAP = Basis("eighth", "eighth-iSwap", math.pi / 16, tuple(range(2, 13)),
+                     {2: 3, 3: 88, 4: 865, 5: 4460, 6: 14074, 7: 30125, 8: 46431, 9: 3554, 10: 383, 11: 17},
+                     0.9999, ((8, 1000, 8), (10, 500, 9)), tuple(range(7, 13)))
 # the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
 RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
 
@@ -212,9 +245,13 @@ def phase_build():
         for k in KERNEL_KS:
             o = _build.occupancy(name, k)
             print(f"[build] occupancy {name}<{k}>: {o['blocks']} resident blocks x {o['threads']} threads = "
-                  f"{o['warps']} warps per SM; {o['smem']} B of {'dynamic' if o['dynamic'] else 'static'} shared "
-                  "memory a block")
-            check(o["warps"] >= 12, f"{name}<{k}> keeps only {o['warps']} warps per SM resident")
+                  f"{o['warps']} warps per SM (room for {o['room']} by shared memory); {o['smem']} B of "
+                  f"{'dynamic' if o['dynamic'] else 'static'} shared memory a block")
+            # 12 resident warps, or where a block's shared memory leaves room
+            # for fewer (Adam from K = 9, the polish from K = 10), every block
+            # that room holds: the registers must not cost a resident block
+            need = min(12 // (o["threads"] // 32), o["room"])
+            check(o["blocks"] >= need, f"{name}<{k}> keeps {o['blocks']} blocks per SM resident, needs {need}")
     return regs
 
 
@@ -623,9 +660,11 @@ def phase_api(card, counted, stats):
     phase_parity(stats, ks=(2, 3), targets=API_CHUNK, restarts=API_RESTARTS, tag="_api")
 
 
-def phase_fractional(card, counted, stats):
-    """The quarter-iSwap basis at full width: its monodromy depths, then the
-    optimizer with each target's own range, on the kernels at depths 2 to 6."""
+def phase_basis(card, counted, stats, basis_spec):
+    """A fractional-iSwap basis at full width: its monodromy depths, then the
+    optimizer with each target's own range (its depth to the deepest), every
+    depth on the kernels; then chains through both solver paths and the
+    kernels against their plain versions at the lanes the run launched."""
     from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
@@ -635,66 +674,69 @@ def phase_fractional(card, counted, stats):
     from slam_decomposition_torch.tools.optimizer_readings import ranking_agreement
 
     dev = torch.device("cuda")
-    q = gates.conversion_gain_gate(0, 0, 0, FRAC_ANGLE, 1.0)
+    tag, name, depths, hist = f"[{basis_spec.tag}]", basis_spec.name, basis_spec.depths, basis_spec.hist
+    q = gates.conversion_gain_gate(0, 0, 0, basis_spec.angle, 1.0)
     basis = lambda k: build_ansatz(cycle_gates([q], k))  # noqa: E731
     cov = load_coverage(q)
     U = haar_sample(B, seed=SEED)
     ks = monodromy_ks_batch(cov, U, dev)
     ks_cpu = monodromy_ks_batch(cov, U, torch.device("cpu"))
-    print(f"[frac] {q}: monodromy depths of haar {B} (seed {SEED}) on the card {_hist(ks)}, on the CPU {_hist(ks_cpu)}")
-    check(np.array_equal(ks, ks_cpu) and _hist(ks) == FRAC_HIST, f"quarter-iSwap depths {_hist(ks)} != {FRAC_HIST}")
-    lo = np.maximum(ks, min(FRAC_DEPTHS))  # each target's range: its depth to the deepest
-    ranges_of = lambda lo: [list(range(k, max(FRAC_DEPTHS) + 1)) for k in lo]  # noqa: E731
+    print(f"{tag} {q}: monodromy depths of haar {B} (seed {SEED}) on the card {_hist(ks)}, on the CPU {_hist(ks_cpu)}")
+    check(np.array_equal(ks, ks_cpu) and _hist(ks) == hist, f"{name} depths {_hist(ks)} != {hist}")
+    lo = np.maximum(ks, min(depths))  # each target's range: its depth to the deepest
+    ranges_of = lambda lo: [list(range(k, max(depths) + 1)) for k in lo]  # noqa: E731
     Uw = haar_sample(1024, seed=SEED + 1)
-    warm = TemplateOptimizer(basis, objective="square", spanning_range=list(FRAC_DEPTHS), override_fail=True)
+    warm = TemplateOptimizer(basis, objective="square", spanning_range=list(depths), override_fail=True)
     warm.approximate_from_distribution(Uw, spanning_ranges=ranges_of(np.maximum(monodromy_ks_batch(cov, Uw, dev), 2)))
-    opt = TemplateOptimizer(basis, objective="square", spanning_range=list(FRAC_DEPTHS), override_fail=True)
+    opt = TemplateOptimizer(basis, objective="square", spanning_range=list(depths), override_fail=True)
     res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U, spanning_ranges=ranges_of(lo)))
     share = float(res.success.mean())
     certified = certified_share(basis, res, U, dev)
-    want = expected_chunks(res, FRAC_DEPTHS, API_CHUNK, lo)
-    active = {k: active_targets(res, k, lo) for k in FRAC_DEPTHS}
-    print(f"[frac] paths {opt.solver_paths}; targets solved at each depth {active}; launches {launches} (expected {want} "
+    want = expected_chunks(res, depths, API_CHUNK, lo)
+    active = {k: active_targets(res, k, lo) for k in depths}
+    print(f"{tag} paths {opt.solver_paths}; targets solved at each depth {active}; launches {launches} (expected {want} "
           f"each: one per chunk of {API_CHUNK} targets at each depth); general-solver calls {general}; cycles "
           f"{_hist(res.cycles)} (monodromy {_hist(ks)}); success {int(res.success.sum())}/{B} = {share:.5f} (need >= "
-          f"{FRAC_SUCCESS_MIN}), confirmed in f64 {certified:.5f}; worst loss {res.loss.max():.3e}")
-    print(f"[frac] {card}: " + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items())
+          f"{basis_spec.success_min}), confirmed in f64 {certified:.5f}; worst loss {res.loss.max():.3e}")
+    print(f"{tag} {card}: " + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items())
           + f", call {wall:.3f} s -> {res.success.sum() / wall:.1f} targets/s; peak device memory {peak:.0f} MiB")
-    check(opt.solver_paths == {k: "kernels" for k in FRAC_DEPTHS if active[k]}, f"paths {opt.solver_paths}")
-    check_counts("quarter-iSwap", launches, general, want, 0)
+    check(opt.solver_paths == {k: "kernels" for k in depths if active[k]}, f"paths {opt.solver_paths}")
+    check_counts(name, launches, general, want, 0)
     check((res.cycles[res.success] >= lo[res.success]).all(), "a target is solved below its monodromy depth")
-    check(share >= FRAC_SUCCESS_MIN and certified == share, f"success share {share}, confirmed {certified}")
-    # the depth-5 chain through both paths from the same starts, restart by
-    # restart (as phase 9 (d) holds the sqiSwap chain)
-    a = basis(5)
-    T = torch.as_tensor(U[ks == 5][:FRAC_CHAIN_B]).to(dev)
-    gen = torch.Generator()
-    gen.manual_seed(9)
-    x0 = (torch.rand((T.shape[0], API_RESTARTS, a.n_params), generator=gen, dtype=torch.float64) * (2 * math.pi)).to(dev)
-    kernel, general_solver = ChainSolver(a.chain_gates), GeneralSolver(a.eval_fn, a.n_params)
-    (_, fk), wall_k, launches, _, _ = counted(lambda: kernel.solve(x0, T))
-    (xg, fg), wall_g, _, general, peak = counted(lambda: general_solver.solve(x0, T))
-    verdict = ((fk <= THRESH) == (fg <= THRESH)).double().mean().item()
-    r = ranking_agreement(kernel, general_solver, x0, T)
-    print(f"[frac] {card}: chain k=5, {T.shape[0]} targets x {API_RESTARTS} restarts, kernel path against general path "
-          f"from the same starts: certified {(fk <= THRESH).double().mean().item():.5f} / "
-          f"{(fg <= THRESH).double().mean().item():.5f}, same verdict {verdict:.5f} (need >= {GENERAL_VERDICT_FRAC}); "
-          f"restarts converged in both or neither {r['lanes_same']:.5f} (need >= {RANK_LANES_MIN}), lanes by the "
-          f"kernels' score in decades from 1e-10 {[round(v, 5) for v in r['decades']]}; same best restart "
-          f"{r['same_best']:.5f}, on the {r['single']:.5f} of targets with one converged restart "
-          f"{r['same_best_single']:.5f} (need >= {RANK_SINGLE_MIN}), general path's winner converged by the kernels' "
-          f"score {r['winner_converged']:.5f} (need >= {RANK_WINNER_MIN}); {wall_k:.3f} s ({launches}) against "
-          f"{wall_g:.3f} s ({general} general call), peak {peak:.0f} MiB")
-    check(verdict >= GENERAL_VERDICT_FRAC, "chain k=5: the two paths certify different targets")
-    check(r["lanes_same"] >= RANK_LANES_MIN and r["same_best_single"] >= RANK_SINGLE_MIN
-          and r["winner_converged"] >= RANK_WINNER_MIN, "chain k=5: the two paths rank the restarts differently")
-    check(all(v == 1 for v in launches.values()) and general == 1, f"chain k=5: launches {launches}, general {general}")
-    check((general_solver.certify(xg, T)[fg <= THRESH] <= THRESH + CERT_ATOL).all(), "general path's cost is not its x's")
-    # the kernels against their plain versions at the lanes the depth-5 and
-    # depth-6 runs launched, outside the counted runs
-    for k in (5, 6):
+    check(share >= basis_spec.success_min and certified == share, f"success share {share}, confirmed {certified}")
+    # chains through both paths from the same starts, restart by restart (as
+    # phase 10 (d) holds the sqiSwap chain)
+    for k, n_targets, least in basis_spec.chains:
+        a = basis(k)
+        T = torch.as_tensor(U[(ks >= least) & (ks <= k)][:n_targets]).to(dev)
+        gen = torch.Generator()
+        gen.manual_seed(9)
+        x0 = (torch.rand((T.shape[0], API_RESTARTS, a.n_params), generator=gen, dtype=torch.float64) * (2 * math.pi)).to(dev)
+        kernel, general_solver = ChainSolver(a.chain_gates), GeneralSolver(a.eval_fn, a.n_params)
+        (_, fk), wall_k, launches, _, _ = counted(lambda: kernel.solve(x0, T))
+        (xg, fg), wall_g, _, general, peak = counted(lambda: general_solver.solve(x0, T))
+        verdict = ((fk <= THRESH) == (fg <= THRESH)).double().mean().item()
+        r = ranking_agreement(kernel, general_solver, x0, T)
+        print(f"{tag} {card}: chain k={k}, {T.shape[0]} targets of depth {least}..{k} x {API_RESTARTS} restarts, kernel "
+              f"path against general path from the same starts: certified {(fk <= THRESH).double().mean().item():.5f} / "
+              f"{(fg <= THRESH).double().mean().item():.5f}, same verdict {verdict:.5f} (need >= {GENERAL_VERDICT_FRAC}); "
+              f"restarts converged in both or neither {r['lanes_same']:.5f} (need >= {RANK_LANES_MIN}), lanes by the "
+              f"kernels' score in decades from 1e-10 {[round(v, 5) for v in r['decades']]}; same best restart "
+              f"{r['same_best']:.5f}, on the {r['single']:.5f} of targets with one converged restart "
+              f"{r['same_best_single']:.5f} (need >= {RANK_SINGLE_MIN}), general path's winner converged by the kernels' "
+              f"score {r['winner_converged']:.5f} (need >= {RANK_WINNER_MIN}); {wall_k:.3f} s ({launches}) against "
+              f"{wall_g:.3f} s ({general} general call), peak {peak:.0f} MiB")
+        check(verdict >= GENERAL_VERDICT_FRAC, f"chain k={k}: the two paths certify different targets")
+        check(r["lanes_same"] >= RANK_LANES_MIN and r["same_best_single"] >= RANK_SINGLE_MIN
+              and r["winner_converged"] >= RANK_WINNER_MIN, f"chain k={k}: the two paths rank the restarts differently")
+        check(all(v == 1 for v in launches.values()) and general == 1, f"chain k={k}: launches {launches}, general {general}")
+        check((general_solver.certify(xg, T)[fg <= THRESH] <= THRESH + CERT_ATOL).all(), "general path's cost is not its x's")
+    # the kernels against their plain versions at the lanes the deep runs
+    # launched (a chunk's at most), outside the counted runs
+    for k in basis_spec.parity_ks:
         if active[k]:
-            phase_parity(stats, ks=(k,), targets=active[k], restarts=API_RESTARTS, tag="_frac", gate=q)
+            phase_parity(stats, ks=(k,), targets=min(active[k], API_CHUNK), restarts=API_RESTARTS,
+                         tag=f"_{basis_spec.tag}", gate=q)
 
 
 def phase_depth(card, counted, stats):
@@ -734,7 +776,7 @@ def phase_depth(card, counted, stats):
           f"launches {launches}, {wall:.3f} s")
     check(share >= DEPTH_CNOT_MIN, "cnot basis at depth 3")
     check_counts("cnot basis at depth 3", launches, general, math.ceil(DEPTH_CNOT_B / API_CHUNK), 0)
-    # (c) depths 4 to 7: which path each takes, by rule
+    # (c) depths 4 to 13: which path each takes, by rule
     U = haar_sample(DEPTH_DEEP_B, seed=7)
     for k, want in DEPTH_DEEP:
         opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
@@ -751,7 +793,8 @@ def phase_depth(card, counted, stats):
     # (c) launch them with, outside the counted runs
     phase_parity(stats, ks=(1,), targets=4 * DEPTH_TILE, restarts=API_RESTARTS)
     phase_parity(stats, ks=(3,), targets=DEPTH_CNOT_B, restarts=API_RESTARTS, tag="_cnot", gate=gates.CNOT)
-    phase_parity(stats, ks=(4, 5, 6), targets=DEPTH_DEEP_B, restarts=API_RESTARTS)
+    phase_parity(stats, ks=tuple(k for k, path in DEPTH_DEEP if path == "kernels"), targets=DEPTH_DEEP_B,
+                 restarts=API_RESTARTS)
 
 
 def phase_general(card, counted):
@@ -845,6 +888,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -857,10 +901,12 @@ def main() -> int:
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
         counted = Counted()
         phase_api(card, counted, stats)
-        phase_fractional(card, counted, stats)
+        phase_basis(card, counted, stats, QUARTER_ISWAP)
+        phase_basis(card, counted, stats, EIGHTH_ISWAP)
         phase_depth(card, counted, stats)
         phase_general(card, counted)
-        print(f"[result] launches of the API, quarter-iSwap, depth and general-solver runs: {counted.total}")
+        print(f"[result] launches of the API, quarter-iSwap, eighth-iSwap, depth and general-solver runs: "
+              f"{counted.total}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -881,8 +927,8 @@ def main() -> int:
             "flops": stats[name]["k2"]["bound"]["flops"],
             "lanes": stats[name]["k2"]["lanes"],
             # the other instances and shapes: k3 at the main path's lanes, the
-            # others at the lanes the API, quarter-iSwap and depth phases
-            # launch
+            # others at the lanes the API, quarter-iSwap, eighth-iSwap and
+            # depth phases launch
             **{
                 f"{key}_{label}": val
                 for label, shape in stats[name].items()
@@ -898,6 +944,7 @@ def main() -> int:
         }
         for name in REPLACES
     ]
+    print(f"[result] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

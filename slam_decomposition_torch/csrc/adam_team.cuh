@@ -46,6 +46,22 @@ template <int K> struct AdamThread {
   float part[6];          // operands of the team's sums
 };
 
+// Chains up to this depth run their layer loops fully unrolled (every
+// index known to the compiler); deeper ones loop over the layers, which
+// keeps the code small: unrolled, K = 6 took twice K = 5's time a lane on
+// an H100 (PERF.md). The gradient slots stay in registers either way
+// (set_slot).
+template <int K> constexpr bool kAdamUnrolled = K <= 5;
+template <int K> constexpr int kAdamLayerUnroll = kAdamUnrolled<K> ? K + 1 : 1;
+
+// a[o] = v for a register array: a select per slot, so that a runtime o
+// keeps a in registers
+template <int n> SLAM_HD void set_slot(float (&a)[n], int o, float v) {
+#pragma unroll
+  for (int q = 0; q < n; ++q)
+    if (q == o) a[q] = v;
+}
+
 // The forward chain at ws.x: its sines and cosines, then thread t column t
 // of P_0..P_K and of U and its share of the trace; leaves t = tr(T^dag U)
 // in every thread's th.t
@@ -61,7 +77,7 @@ SLAM_HD void adam_forward(Team& tm, AdamWs<K>& ws, const GateNz<float>* G) {
     C<float> v[4], w[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.f : 0.f, 0.f);
-#pragma unroll
+#pragma unroll (kAdamLayerUnroll<K>)
     for (int i = 0; i <= K; ++i) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) ws.P[i][q][t] = v[q];
@@ -110,7 +126,7 @@ SLAM_HD void adam_team(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const fl
 #pragma unroll
       for (int a = 0; a < 4; ++a) th.X[a] = cmk(ws.T[4 * a + t].re, -ws.T[4 * a + t].im);
     }
-#pragma unroll
+#pragma unroll (kAdamLayerUnroll<K>)
     for (int i = K; i >= 0; --i) {
       SLAM_EACH(tm, t) {
         AdamThread<K>& th = tm.th(t);
@@ -166,7 +182,11 @@ SLAM_HD void adam_team(Team& tm, AdamWs<K>& ws, const GateNz<float>* G, const fl
 #pragma unroll
         for (int j = 0; j < 6; ++j) {
           const int p = 6 * i + j;
-          if (p % kAdamTeam == t) th.g[p / kAdamTeam] = th.part[j];
+          if constexpr (kAdamUnrolled<K>) {
+            if (p % kAdamTeam == t) th.g[p / kAdamTeam] = th.part[j];
+          } else if (p % kAdamTeam == t) {
+            set_slot(th.g, p / kAdamTeam, th.part[j]);
+          }
         }
       }
     }

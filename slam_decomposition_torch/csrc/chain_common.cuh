@@ -32,6 +32,8 @@
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #endif
 
 #if defined(__CUDACC__)
@@ -338,6 +340,23 @@ template <class S> __device__ __forceinline__ S& dynamic_smem() {
 template <class S, class Kernel> cudaError_t allow_smem(Kernel* kernel) {
   if constexpr (kDynSmem<S> == 0) return cudaSuccess;
   else return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDynSmem<S>);
+}
+
+// Resident blocks per SM that a block of shared memory S leaves room for on
+// sm_90 (228 KB an SM, 1 KB of it reserved per block). Where it is below
+// the register budget's block count, the kernels take it as that count:
+// a tighter register cap would buy spills and no more resident blocks.
+constexpr size_t kSmemPerSm = 228 * 1024, kSmemReservedPerBlock = 1024;
+template <class S> constexpr int kSmemBlocks = (int)(kSmemPerSm / (sizeof(S) + kSmemReservedPerBlock));
+constexpr int min_blocks(int regs, int smem) { return regs < smem ? regs : smem; }
+
+// The chain depths the kernels are instantiated for (ops/chain_kernels.py
+// KERNEL_KS): f(std::integral_constant<int, K>{}) for K == k in 1..kMaxK,
+// else cudaErrorInvalidValue.
+constexpr int kMaxK = 12;
+template <int K = 1, class F> cudaError_t by_k(int k, F&& f) {
+  if constexpr (K > kMaxK) return cudaErrorInvalidValue;
+  else return k == K ? f(std::integral_constant<int, K>{}) : by_k<K + 1>(k, f);
 }
 #endif
 

@@ -14,7 +14,7 @@
 #include <vector>
 using namespace slam;
 
-constexpr int kAdamLanes = 32, kLmLanes = 4;  // lanes per block, as in adam_chain.cu / lm_chain.cu, polish_chain.cu
+constexpr int kAdamLanes = 32, kLmLanes = 4;  // lanes per block, as in adam_chain.cuh / lm_chain.cuh, polish_chain.cuh
 
 template <typename T, int K, typename S> static void gate_lists(const S* gates, GateNz<T>* G) {
   for (int idx = 0; idx < 8 * K; ++idx) gate_nz_entry<T>(gates, G, idx);
@@ -36,14 +36,15 @@ template <typename R, int K> static void lm_k(const R* x0, const R* tgt, const R
   for (int lane = 0; lane < (L + kLmLanes - 1) / kLmLanes * kLmLanes; ++lane)
     lm_team_io<R, K>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
 }
-// the instance of depth k (1..6); Adam's with the cost when fout is given
+// the instance of depth k (1..12); Adam's with the cost when fout is given
 template <int K> static void adam_any(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int L, float* xout, float* fout) {
   if (fout) adam_k<K, true>(x0, tgt, gates, sched, iters, L, xout, fout);
   else adam_k<K, false>(x0, tgt, gates, sched, iters, L, xout, fout);
 }
 #define SLAM_BY_K(k, call) \
   switch (k) { case 1: call(1); break; case 2: call(2); break; case 3: call(3); break; case 4: call(4); break; \
-               case 5: call(5); break; case 6: call(6); break; }
+               case 5: call(5); break; case 6: call(6); break; case 7: call(7); break; case 8: call(8); break; \
+               case 9: call(9); break; case 10: call(10); break; case 11: call(11); break; case 12: call(12); break; }
 extern "C" {
 // fout may be null: then the instance without the final cost runs
 void adam_host(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int k, int L, float* xout, float* fout) {

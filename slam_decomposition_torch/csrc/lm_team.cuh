@@ -28,15 +28,16 @@
 //           the two dot products are butterfly sums;
 //   residual: thread e builds r_e; ||r||^2 is a butterfly sum in R.
 //
-// Wide chains (K >= 5: n = 36, 42 parameters, more than the team's 32
-// threads): thread t owns parameters t and t + 32 (the second only for
-// t < n - 32) in J's columns, b and CG. A is not built: two rows of n
-// entries a thread would not fit in registers, and A in shared memory
-// would halve the lanes an SM holds. CG multiplies by it as
-// (A + lam I) p = J^T (J p) + lam p from J, which stays in shared memory:
-// thread e forms (J p)_e from row e of J, then each thread its entries of
-// J^T (J p) from its columns. That is A p up to f32 rounding (the plain
-// version forms A), at 2 * 32 n multiply-adds a CG iteration against n^2.
+// Wide chains (K >= 5: n >= 36 parameters, more than the team's 32
+// threads): thread t owns parameters t, t + 32 and, from K = 10 (n >= 66),
+// t + 64 (each only where it is below n) in J's columns, b and CG. A is
+// not built: two rows of n entries a thread would not fit in registers,
+// and A in shared memory would halve the lanes an SM holds. CG multiplies
+// by it as (A + lam I) p = J^T (J p) + lam p from J, which stays in shared
+// memory: thread e forms (J p)_e from row e of J, then each thread its
+// entries of J^T (J p) from its columns. That is A p up to f32 rounding
+// (the plain version forms A), at 2 * 32 n multiply-adds a CG iteration
+// against n^2.
 //
 // With R = float the trial residual comes from the f32 chain parts of the
 // trial point, which are then those J needs if the step is accepted. With
@@ -69,12 +70,22 @@ template <int K> struct LmHi<double, K> {
   Trig<double> trigd[NT];   // u3 factors of the last f64 residual
 };
 
+// Row length of J and p: n rounded up to a multiple of 4 floats (16-byte
+// loads). A wide chain's CG has thread e read row e of J 16 bytes at a
+// time, 8 threads a shared-memory pass: rows an odd number of 16-byte units
+// apart fall on 8 different groups of 4 banks, an even number share them
+// (at n = 48, 54, 72, 78 the rows were 2-4 ways in conflict), so from K = 5
+// the length is rounded up to an odd number of 16-byte units (K = 5, 6, 9,
+// 10 have one already).
+template <int K>
+constexpr int kLmRowPad = K >= 5 ? ((6 * (K + 1) + 3) / 4 | 1) * 4 : (6 * (K + 1) + 3) / 4 * 4;
+
 // per-lane workspace in shared memory; rows of J and p padded to NP (a
 // multiple of 4) and 16-byte aligned for 16-byte loads; matrices row-major
 // with one padding entry so that the K+1 matrices fall on different banks.
 // With R = double, x is float(xd) (where J is taken) and xn is not used.
 template <typename R, int K> struct LmWs : LmHi<R, K> {
-  static constexpr int N = 6 * (K + 1), NP = (N + 3) / 4 * 4, NT = 2 * (K + 1), MS = 17;
+  static constexpr int N = 6 * (K + 1), NP = kLmRowPad<K>, NT = 2 * (K + 1), MS = 17;
   alignas(16) float J[32][NP];  // J[e][p] = d r_e / d x_p
   alignas(16) float p[2][NP];   // CG direction, double-buffered
   float x[N], xn[N];          // parameters, trial parameters
@@ -89,6 +100,15 @@ template <typename R, int K> struct LmWs : LmHi<R, K> {
 
 // parameters a thread owns (t, t + 32, ...) for n = 6(K+1) parameters
 template <int K> constexpr int kLmSlots = (6 * (K + 1) + kLmTeam - 1) / kLmTeam;
+
+// The chain's layer loops (lm_chain_parts, lm_residual_f64) loop over the
+// layers. Unrolled, every chain an iteration builds is inlined with K + 1
+// copies of the layer: on an H100 the LM then took 1.06-1.94x the rolled
+// time at every depth measured (K = 2, 3, 5..12), and the deep instances
+// made the build several times longer (PERF.md). The polish keeps them
+// unrolled at K <= 3, where rolled it spills 4-32 B at its 96-register cap.
+template <typename R, int K>
+constexpr int kLmLayerUnroll = std::is_same_v<R, double> && K <= 3 ? K + 1 : 1;
 
 template <typename R, int K> struct LmThread {
   static constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
@@ -117,7 +137,7 @@ SLAM_HD void lm_chain_parts(Team& tm, LmWs<R, K>& ws, const float* xs, const Gat
       C<float> v[4], w[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.f : 0.f, 0.f);
-#pragma unroll
+#pragma unroll (kLmLayerUnroll<R, K>)
       for (int i = 0; i <= K; ++i) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) ws.P[i][4 * q + t] = v[q];
@@ -138,7 +158,7 @@ SLAM_HD void lm_chain_parts(Team& tm, LmWs<R, K>& ws, const float* xs, const Gat
       C<float> u[4], w[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) u[q] = cmk(q == j ? 1.f : 0.f, 0.f);
-#pragma unroll
+#pragma unroll (kLmLayerUnroll<R, K>)
       for (int i = K; i >= 0; --i) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) ws.S[i][4 * j + q] = u[q];
@@ -212,7 +232,7 @@ SLAM_HD void lm_residual_f64(Team& tm, LmWs<double, K>& ws, const double* xs, co
       C<double> v[4], w[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = cmk(q == t ? 1.0 : 0.0, 0.0);
-#pragma unroll
+#pragma unroll (kLmLayerUnroll<double, K>)
       for (int i = 0; i <= K; ++i) {
         M2<double> A, B;
         u3_build(ws.trigd[2 * i], A, (M2<double>*)nullptr);

@@ -30,124 +30,47 @@
 // right-hand side leaves f32's normal range (b^T b ~ 1e-26 and falling),
 // where every division takes its slow path, so the polish runs CG on b
 // scaled by a power of two (exact; lm_team.cuh). 10000 lanes are 2500
-// blocks, 3.8 waves at 5 resident blocks. At K = 5, 6 (n = 36, 42
-// parameters) a thread owns two columns of J and two CG entries, and CG
-// multiplies by J^T J through J without forming it (lm_team.cuh). The
-// K = 6 block (gate lists and four workspaces, 54 KB) is past the 48 KB of
-// static shared memory and takes it as dynamic shared memory: 4 blocks, 16
-// warps an SM, as the K = 5 block's 46 KB allows.
+// blocks, 3.8 waves at 5 resident blocks. From K = 5 (n >= 36 parameters)
+// a thread owns two (K = 5..9) or three (K = 10..12) columns of J and CG
+// entries, and CG multiplies by J^T J through J without forming it
+// (lm_team.cuh). From K = 6 a block (gate lists and four workspaces, 54 KB
+// at K = 6, 98 KB at K = 12) is past the 48 KB of static shared memory
+// and takes it as dynamic shared memory: 4 blocks (16 warps) an SM at
+// K = 5, 6, 3 at K = 7..9, 2 at K = 10..12.
 
-#include "lm_team.cuh"
+#include "polish_chain.cuh"
 
-namespace {
-
-constexpr int kLanes = 4;  // lanes (warps) per block
-constexpr int kThreads = kLanes * slam::kLmTeam;
-// resident blocks per SM the register budget must allow: 5 caps a thread
-// at 96 registers (20 warps per SM) and still builds without spills; at 4
-// (118 / 125 registers used, 16 warps) the kernel ran 3-6% slower on an H100.
-// At K = 4 (a row of A has 30 entries) it spills 12 B at 96 and takes 4
-// (121 registers used, 16 warps); at K = 5, 6 shared memory allows no more
-// than 4 blocks either.
-template <int K> constexpr int kMinBlocks = K >= 4 ? 4 : 5;
-
-template <int K> struct Smem {
-  slam::GateNz<float> G[K];
-  slam::GateNz<double> Gd[K];
-  slam::LmWs<double, K> ws[kLanes];
-};
-
-template <int K>
-__device__ __forceinline__ void polish_block(slam::GateNz<float>* sG, slam::GateNz<double>* sGd,
-                                             slam::LmWs<double, K>* ws, const double* __restrict__ x0,
-                                             const double* __restrict__ tgt, const double* __restrict__ gates,
-                                             int iters, int L, double* __restrict__ xout,
-                                             double* __restrict__ fout) {
-  for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) {
-    slam::gate_nz_entry(gates, sG, idx);
-    slam::gate_nz_entry(gates, sGd, idx);
-  }
-  __syncthreads();
-  const int w = threadIdx.x / slam::kLmTeam;
-  const int lane = blockIdx.x * kLanes + w;
-  slam::DevTeam<slam::kLmTeam, slam::LmThread<double, K>> tm(threadIdx.x % slam::kLmTeam);
-  slam::lm_team_io<double, K>(tm, ws[w], sG, sGd, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout,
-                              fout);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
-    polish_chain_kernel(const double* __restrict__ x0, const double* __restrict__ tgt,
-                        const double* __restrict__ gates, int iters, int L,
-                        double* __restrict__ xout, double* __restrict__ fout) {
-  if constexpr (sizeof(Smem<K>) <= slam::kStaticSmemMax) {
-    __shared__ slam::GateNz<float> sG[K];
-    __shared__ slam::GateNz<double> sGd[K];
-    __shared__ slam::LmWs<double, K> ws[kLanes];
-    polish_block<K>(sG, sGd, ws, x0, tgt, gates, iters, L, xout, fout);
-  } else {
-    Smem<K>& sm = slam::dynamic_smem<Smem<K>>();
-    polish_block<K>(sm.G, sm.Gd, sm.ws, x0, tgt, gates, iters, L, xout, fout);
-  }
-}
-
-template <int K>
-cudaError_t launch(dim3 grid, dim3 block, cudaStream_t s, const double* a, const double* t, const double* g,
-                   int iters, int L, double* xo, double* fo) {
-  cudaError_t err = slam::allow_smem<Smem<K>>(polish_chain_kernel<K>);
-  if (err != cudaSuccess) return err;
-  polish_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo);
-  return cudaGetLastError();
-}
-
-template <int K> cudaError_t occupancy(int* blocks, int* smem, int* dynamic) {
-  *smem = (int)sizeof(Smem<K>);
-  *dynamic = slam::kDynSmem<Smem<K>> > 0;
-  cudaError_t err = slam::allow_smem<Smem<K>>(polish_chain_kernel<K>);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, polish_chain_kernel<K>, kThreads,
-                                                       slam::kDynSmem<Smem<K>>);
-}
-
-}  // namespace
+// K = 7..12 come from polish_chain_deep.cu
+SLAM_POLISH_DEPTH(extern, 7)
+SLAM_POLISH_DEPTH(extern, 8)
+SLAM_POLISH_DEPTH(extern, 9)
+SLAM_POLISH_DEPTH(extern, 10)
+SLAM_POLISH_DEPTH(extern, 11)
+SLAM_POLISH_DEPTH(extern, 12)
 
 // x0 (L, 6(k+1)) f64, tgt (L, 4, 4) complex128, gates (k, 4, 4) complex128
-// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, ..., 6.
+// -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, ..., 12.
 extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const void* gates,
                                          int iters, int k, int L, void* xout, void* fout,
                                          void* stream) {
   if (L <= 0) return cudaSuccess;
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + kLanes - 1) / kLanes), block(kThreads);
+  const dim3 grid((L + slam_polish::kLanes - 1) / slam_polish::kLanes), block(slam_polish::kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const double* a = static_cast<const double*>(x0);
   const double* t = static_cast<const double*>(tgt);
   const double* g = static_cast<const double*>(gates);
   double* xo = static_cast<double*>(xout);
   double* fo = static_cast<double*>(fout);
-  switch (k) {
-    case 1: return launch<1>(grid, block, s, a, t, g, iters, L, xo, fo);
-    case 2: return launch<2>(grid, block, s, a, t, g, iters, L, xo, fo);
-    case 3: return launch<3>(grid, block, s, a, t, g, iters, L, xo, fo);
-    case 4: return launch<4>(grid, block, s, a, t, g, iters, L, xo, fo);
-    case 5: return launch<5>(grid, block, s, a, t, g, iters, L, xo, fo);
-    case 6: return launch<6>(grid, block, s, a, t, g, iters, L, xo, fo);
-    default: return cudaErrorInvalidValue;
-  }
+  return slam::by_k(k, [&](auto K) {
+    return slam_polish::launch<decltype(K)::value>(grid, block, s, a, t, g, iters, L, xo, fo);
+  });
 }
 
 // resident blocks per SM of the k-instance on the current device, its
 // threads per block, its shared memory a block and whether that is dynamic
 extern "C" cudaError_t slam_polish_chain_occupancy(int k, int* blocks, int* threads, int* smem, int* dynamic) {
-  *threads = kThreads;
-  switch (k) {
-    case 1: return occupancy<1>(blocks, smem, dynamic);
-    case 2: return occupancy<2>(blocks, smem, dynamic);
-    case 3: return occupancy<3>(blocks, smem, dynamic);
-    case 4: return occupancy<4>(blocks, smem, dynamic);
-    case 5: return occupancy<5>(blocks, smem, dynamic);
-    case 6: return occupancy<6>(blocks, smem, dynamic);
-    default: return cudaErrorInvalidValue;
-  }
+  *threads = slam_polish::kThreads;
+  return slam::by_k(k, [&](auto K) { return slam_polish::occupancy<decltype(K)::value>(blocks, smem, dynamic); });
 }

@@ -35,6 +35,7 @@ SIGNATURES = {
     "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
+MAX_THREADS_PER_SM = 2048  # sm_90
 # kernel -> its occupancy query (k, *resident blocks per SM, *threads per block,
 # *shared memory bytes a block, *whether that is dynamic shared memory)
 OCCUPANCY = {
@@ -118,6 +119,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_I, *[ctypes.POINTER(_I)] * 4]
         fn.restype = ctypes.c_int
+    lib.slam_smem_per_sm.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.slam_smem_per_sm.restype = ctypes.c_int
     lib.slam_error_string.argtypes = [ctypes.c_int]
     lib.slam_error_string.restype = ctypes.c_char_p
     return lib
@@ -128,17 +131,42 @@ def error_string(err: int) -> str:
 
 
 def occupancy(kernel: str, k: int) -> dict:
-    """{"blocks", "threads", "warps", "smem", "dynamic"}: resident blocks per
-    SM of the kernel's k-instance on the current device (the CUDA occupancy
-    calculator), its threads per block, the resident warps per SM, its
-    shared memory a block in bytes and whether that is dynamic shared
-    memory (a block's workspace past the 48 KB a kernel may declare)."""
+    """{"blocks", "threads", "warps", "smem", "dynamic", "room"}: resident
+    blocks per SM of the kernel's k-instance on the current device (the CUDA
+    occupancy calculator), its threads per block, the resident warps per SM,
+    its shared memory a block in bytes, whether that is dynamic shared
+    memory (a block's workspace past the 48 KB a kernel may declare), and
+    the blocks an SM has room for by shared memory and threads alone (so
+    ``blocks < room`` means the registers cost resident blocks)."""
+    lib = load()
     blocks, threads, smem, dynamic = _I(0), _I(0), _I(0), _I(0)
-    err = getattr(load(), OCCUPANCY[kernel])(k, *map(ctypes.byref, (blocks, threads, smem, dynamic)))
+    err = getattr(lib, OCCUPANCY[kernel])(k, *map(ctypes.byref, (blocks, threads, smem, dynamic)))
     if err != 0:
         raise RuntimeError(f"{OCCUPANCY[kernel]}(k={k}) failed: {error_string(err)} ({err})")
+    per_sm, reserved = _I(0), _I(0)
+    err = lib.slam_smem_per_sm(ctypes.byref(per_sm), ctypes.byref(reserved))
+    if err != 0:
+        raise RuntimeError(f"slam_smem_per_sm failed: {error_string(err)} ({err})")
+    room = min(per_sm.value // (smem.value + reserved.value), MAX_THREADS_PER_SM // threads.value)
     return {"blocks": blocks.value, "threads": threads.value, "warps": blocks.value * threads.value // 32,
-            "smem": smem.value, "dynamic": bool(dynamic.value)}
+            "smem": smem.value, "dynamic": bool(dynamic.value), "room": room}
+
+
+def sass_instructions() -> dict:
+    """{kernel entry: SASS instructions} of the built library, counted from
+    ``cuobjdump -sass`` (the code size each instance runs from)."""
+    cuobjdump = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(build()["path"])], capture_output=True, text=True,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[fn] += 1
+    return out
 
 
 def ptxas_summary(report: str) -> dict:

@@ -28,10 +28,10 @@ import torch
 
 from slam_decomposition_torch.models.templates import chain_unitary
 
-# chain depths the CUDA kernels are instantiated for: n = 6(k+1) <= 42, at
-# most two parameters per thread of the LM's warp (csrc/lm_team.cuh); deeper
-# chains take the general solver
-KERNEL_KS = (1, 2, 3, 4, 5, 6)
+# chain depths the CUDA kernels are instantiated for (csrc/chain_common.cuh
+# kMaxK): n = 6(k+1) <= 78, at most three parameters per thread of the LM's
+# warp (csrc/lm_team.cuh); depth 13 and deeper take the general solver
+KERNEL_KS = tuple(range(1, 13))
 # the main path's schedule (JAX bench.py:88-91, pallas_chain.py:688-699)
 ADAM_ITERS, ADAM_LR, LM32_ITERS, LM_ITERS = 100, 0.1, 8, 6
 CG_EXTRA_ITERS = 8  # CG runs n + 8 iterations (JAX gauss_newton._spd_solve)

@@ -271,9 +271,9 @@ class ChainSolver:
 def takes_kernels(chain_gates, residual="phase", final_cost_fn=None, lower=None) -> bool:
     """The routing rule of ``make_solver``: a plain u3 chain (``chain_gates``
     given) of a depth the kernels are instantiated for
-    (``chain_kernels.KERNEL_KS``, 1..6: n = 6(k+1) <= 42, at most two
-    parameters per thread of the LM's warp), the phase residual, the square
-    cost, no bounds."""
+    (``chain_kernels.KERNEL_KS``, 1..12: n = 6(k+1) <= 78, at most three
+    parameters per thread of the LM's warp; depth 13 and deeper take the
+    general path), the phase residual, the square cost, no bounds."""
     return (
         chain_gates is not None
         and residual == "phase"
@@ -302,11 +302,11 @@ def make_solver(
 
     Routing, by rule and not by a failed launch (``takes_kernels``; JAX
     gauss_newton.py:278-284 routes the same templates to its Pallas
-    kernels): a plain chain of depth 1..6 with the phase residual, the
+    kernels): a plain chain of depth 1..12 with the phase residual, the
     square cost and no bounds takes the kernel path (``ChainSolver``: the
     three CUDA kernels on CUDA tensors, their plain versions on CPU
-    tensors). Everything else, a chain of depth 7 or more included (the
-    kernels are instantiated for depths 1..6), takes the general path
+    tensors). Everything else, a chain of depth 13 or more included (the
+    kernels are instantiated for depths 1..12), takes the general path
     (``GeneralSolver``), the same algorithm in plain PyTorch."""
     iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr)
     if takes_kernels(chain_gates, residual, final_cost_fn, lower):

@@ -2,7 +2,7 @@
 not take on every run, and the comparisons both share.
 
     python -m slam_decomposition_torch.tools.optimizer_readings [--seeds 1 2] [--lbfgs-targets 200]
-        [--readings api depth chain frac]
+        [--readings api depth chain frac eighth]
 
 Per seed of the random starts (chip_smoke.py runs seed 0 of the first two and
 seed 9 of the third; its limits were set from these readings beside its own):
@@ -20,7 +20,11 @@ seed 9 of the third; its limits were set from these readings beside its own):
   0, pi/8, 1) templates over each target's range (its monodromy depth to 6)
   on haar_sample(100000, seed=456): the success share, the cycles and the
   seconds per depth; then the depth-5 chain through both paths from the same
-  starts (1000 of its depth-5 targets x 5 restarts): ``ranking_agreement``.
+  starts (1000 of its depth-5 targets x 5 restarts): ``ranking_agreement``;
+* the eighth-iSwap phase: the same on conversion_gain_gate(0, 0, 0, pi/16,
+  1) templates over each target's range to 12, then the depth-8 chain on
+  1000 depth-8 targets and the depth-10 chain on 500 targets of depth 9 or
+  10 through both paths.
 
 Then the launch count of one L-BFGS solve: the CNOT basis at depth 3 on
 haar_sample(N, seed=2) x 5 restarts under torch.profiler (after one warm
@@ -32,6 +36,7 @@ keeps every event (~0.9M at N = 200).
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import subprocess
 import sys
@@ -51,7 +56,12 @@ from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_bat
 B, SEED = 100_000, 456
 DEPTH_TILE, LEAST_DEPTHS = 250, (1, 2, 2, 3)
 CHAIN_B, RESTARTS = 2000, 5
-FRAC_ANGLE, FRAC_DEPTHS, FRAC_CHAIN_B = math.pi / 8, (2, 3, 4, 5, 6), 1000
+# fractional iSwap bases: g2, the depths of their templates, and the chains
+# (depth, targets, least monodromy depth) taken through both solver paths
+FRACTIONAL = {
+    "frac": (math.pi / 8, (2, 3, 4, 5, 6), ((5, 1000, 5),)),
+    "eighth": (math.pi / 16, tuple(range(2, 13)), ((8, 1000, 8), (10, 500, 9))),
+}
 # A restart counts as converged where its f32 score, as a square cost, is at
 # or under this: converged restarts sit at the f32 floor (1e-7 to 1e-5), the
 # others in local minima (the readings print how many lie between)
@@ -159,36 +169,42 @@ def chain_reading(seed: int) -> None:
               + " / ".join(f"{same_parameters(xk, xg, t):.5f}" for t in (1e-3, 1e-6, 1e-9, 0.0)))
 
 
-def fractional_reading(seed: int) -> None:
+def fractional_reading(seed: int, name: str) -> None:
+    angle, depths, chains = FRACTIONAL[name]
     dev = torch.device("cuda")
-    q = gates.conversion_gain_gate(0, 0, 0, FRAC_ANGLE, 1.0)
+    q = gates.conversion_gain_gate(0, 0, 0, angle, 1.0)
     U = haar_sample(B, seed=SEED)
     ks = monodromy_ks_batch(load_coverage(q), U, dev)
-    ranges = [list(range(max(int(k), min(FRAC_DEPTHS)), max(FRAC_DEPTHS) + 1)) for k in ks]
-    opt = TemplateOptimizer(_basis(q), objective="square", spanning_range=list(FRAC_DEPTHS), override_fail=True,
-                            seed=seed)
+    ranges = [list(range(max(int(k), min(depths)), max(depths) + 1)) for k in ks]
+    opt = TemplateOptimizer(_basis(q), objective="square", spanning_range=list(depths), override_fail=True, seed=seed)
     t0 = time.perf_counter()
     res = opt.approximate_from_distribution(U, spanning_ranges=ranges)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     vals, cnt = np.unique(res.cycles, return_counts=True)
-    print(f"[frac] seed={seed}: success {int(res.success.sum())}/{B}, cycles {dict(zip(vals.tolist(), cnt.tolist()))}, "
+    print(f"[{name}] seed={seed}: success {int(res.success.sum())}/{B}, cycles {dict(zip(vals.tolist(), cnt.tolist()))}, "
           + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items()) + f", call {wall:.3f} s")
-    a = _basis(q)(5)
-    T = torch.as_tensor(U[ks == 5][:FRAC_CHAIN_B]).to(dev)
     gen = torch.Generator()
     gen.manual_seed(seed)
-    x0 = (torch.rand((T.shape[0], RESTARTS, a.n_params), generator=gen, dtype=torch.float64) * (2 * math.pi)).to(dev)
-    kernel, general = ChainSolver(a.chain_gates), GeneralSolver(a.eval_fn, a.n_params)
-    (_, fk), (_, fg) = kernel.solve(x0, T), general.solve(x0, T)
-    r = ranking_agreement(kernel, general, x0, T)
-    print(f"[frac] seed={seed} chain k=5, {T.shape[0]} targets x {RESTARTS} restarts: same verdict at 1e-10 "
-          f"{((fk <= 1e-10) == (fg <= 1e-10)).double().mean().item():.5f}; "
-          + ", ".join(f"{name} {val:.5f}" if isinstance(val, float) else f"{name} {[round(v, 5) for v in val]}"
-                      for name, val in r.items()))
+    for k, targets, least in chains:
+        a = _basis(q)(k)
+        T = torch.as_tensor(U[(ks >= least) & (ks <= k)][:targets]).to(dev)
+        x0 = (torch.rand((T.shape[0], RESTARTS, a.n_params), generator=gen, dtype=torch.float64) * (2 * math.pi)).to(dev)
+        kernel, general = ChainSolver(a.chain_gates), GeneralSolver(a.eval_fn, a.n_params)
+        (_, fk), (_, fg) = kernel.solve(x0, T), general.solve(x0, T)
+        r = ranking_agreement(kernel, general, x0, T)
+        print(f"[{name}] seed={seed} chain k={k}, {T.shape[0]} targets x {RESTARTS} restarts: same verdict at 1e-10 "
+              f"{((fk <= 1e-10) == (fg <= 1e-10)).double().mean().item():.5f}; "
+              + ", ".join(f"{key} {val:.5f}" if isinstance(val, float) else f"{key} {[round(v, 5) for v in val]}"
+                          for key, val in r.items()))
 
 
-READINGS = {"api": api_reading, "depth": depth_reading, "chain": chain_reading, "frac": fractional_reading}
+READINGS = {
+    "api": api_reading,
+    "depth": depth_reading,
+    "chain": chain_reading,
+    **{name: functools.partial(fractional_reading, name=name) for name in FRACTIONAL},
+}
 
 
 def lbfgs_reading(targets: int) -> None:

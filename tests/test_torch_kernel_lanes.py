@@ -24,8 +24,19 @@ from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
 
-KS = [1, 2, 3, 4, 5, 6]  # every depth the kernels are instantiated for
+KS = list(range(1, 13))  # every depth the kernels are instantiated for
 LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module, restored after it: the plain
+    versions here run many small ops, where extra threads only add
+    synchronisation (and contend with the other test processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,7 @@ from slam_decomposition_torch.transpile import kak
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 
 pytestmark = pytest.mark.cuda
-KS = [1, 2, 3, 4, 5, 6]  # every depth the kernels are instantiated for
+KS = list(range(1, 13))  # every depth the kernels are instantiated for
 LANES = [512, 509]  # 509: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
 
 
@@ -106,10 +106,10 @@ def test_polish_kernel_matches_plain(dev, k, L):
 
 def test_kernels_refuse_uninstantiated_depth(dev):
     g64, g32, T, T32, _ = _inputs(2, dev)
-    g7 = torch.cat([g32, g32, g32, g32[:1]]).contiguous()  # k = 7: 48 parameters, no instance
-    x = torch.zeros((T32.shape[0], 48), dtype=torch.float32, device=dev)
+    g13 = torch.cat([g32] * 6 + [g32[:1]]).contiguous()  # k = 13: 84 parameters, no instance
+    x = torch.zeros((T32.shape[0], 84), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
-        ck.lm_chain(x, T32, g7, 1)
+        ck.lm_chain(x, T32, g13, 1)
 
 
 def test_batch_synth_on_the_card(dev):
