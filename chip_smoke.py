@@ -8,11 +8,13 @@ Phases, one line each (more for the build report):
      nvcc, print the build seconds, ptxas registers / spills and the
      resident blocks and warps per SM (CUDA occupancy calculator) of each
      kernel instance (Adam with and without the cost, the LM and the polish
-     at k = 1..12: 48 instances) with its shared memory a block, static or
-     dynamic; every instance must build without spills and with no stack
-     frame beyond the math library's sincos scratch, and keep 12 warps per
-     SM resident, or every block its shared memory leaves room for where
-     that is fewer;
+     at k = 1..12: 48 instances; and the four depth-generic programs, in
+     which k is a runtime argument, at k = 12 and at DEPTH_DEEP's deep
+     depths, with their lanes a block) with its shared memory a block,
+     static or dynamic; every instance must build without spills and with
+     no stack frame beyond the math library's sincos scratch, and keep 12
+     warps per SM resident, or every block its shared memory leaves room for
+     where that is fewer;
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
@@ -21,6 +23,9 @@ Phases, one line each (more for the build report):
      flop model (slam_decomposition_torch/utils/mfu.py) at those shapes;
      the Adam instance that also returns the square cost must return the
      default instance's x bit for bit and the plain square cost of that x;
+     then, at k = 12 on 500 targets x 5 restarts, the depth-generic
+     programs (their C entries, which the wrappers take from k = 13)
+     against the k = 12 instances, within the same limits, both timed;
   4. main path: slam_decomposition_torch.pipeline.decompose_haar at
      B=100000, chunk=10000, restarts=4, thresh=1e-10, seed=456, which must
      give the k histogram {2: 79029, 3: 20971}, certify every target at
@@ -68,29 +73,45 @@ Phases, one line each (more for the build report):
      and depth 10 (500 targets of depth 9 or 10), and the kernels against
      their plain versions at the lanes the depth-7..12 runs launched (a
      chunk's at most);
-  9. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
+  9. the sixteenth-iSwap basis, conversion_gain_gate(0, 0, 0, pi/32, 1),
+     whose templates run to depth 24, as phase 7 (SIXTEENTH_ISWAP): four in
+     five targets at depth 13 or more, on the depth-generic programs; the
+     seconds the optimizer spends drawing starts on the host; the chain
+     through both solver paths at depth 13 (1000 depth-13 targets) and depth
+     16 (500 targets of depth 15 or 16), and the kernels against their
+     plain versions at the lanes the depth-13, 16, 19 and 22 runs launched;
+ 10. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
      to 1000 targets (cycles 1, 2, 2, 3), the CNOT basis at depth 3 on
-     haar_sample(10000, seed=2), depths 4 to 13 on 500 Haar targets (4..12:
-     the kernels, 13: the general solver, by rule; the path of every depth
-     is printed), every run at exactly one launch of each kernel (or one
-     call of the general solver) per chunk, and the kernels against their
-     plain versions at these runs' lanes (K = 1 at 5000 / 1000, the CNOT
-     chain's K = 3 at 50000 / 10000, K = 4..12 at 2500 / 500) with phase 3's
-     limits;
- 10. general solver on the card: the reduced and Makhlin objectives at depth
+     haar_sample(10000, seed=2), depths 4 to 12 and 13, 16, 20, 24, 32, 48
+     on 500 Haar targets on the kernels (13..48: the depth-generic programs)
+     and depth 49 routed to the general solver by rule (no solve; the path
+     of every depth is printed), every run at exactly one launch of each
+     kernel per chunk, and the kernels against their plain versions at these
+     runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's K = 3 at 50000 /
+     10000, K = 4..48 at 2500 / 500) with phase 3's limits;
+ 11. general solver on the card: the reduced and Makhlin objectives at depth
      3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
      restarts), a free conversion-gain gate under bounds reaching CNOT at
      depth 1 from 256 restarts, and the chain template forced through the
      general solver against the kernel path from the same starts, restart
      by restart;
- 11. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 10) and the whole run's seconds, then the device
+ 12. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 11) and the whole run's seconds, then the device
      line.
+
+Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
+n <= 78. From depth 13, the depth-generic programs, a lane counts within it
+where the kernel lies within 5e-5 of the plain version, or within the plain
+result's own shift under a one-ulp move of its start where that is larger:
+from n ~ 200 Adam amplifies f32 rounding past 5e-5 on some lanes, in the
+plain version as much as in the kernel (tools/inputs.adam_ulp_spread; the
+lane shares within 5e-5 alone are printed beside it, PERF.md section 6).
 
 Any failure exits non-zero before the result lines. There is no CPU path:
 without CUDA the script exits with status 1.
 """
 
+import ctypes
 import json
 import math
 import re
@@ -112,6 +133,8 @@ REPLACES = {
 SOURCES = {
     name: f"slam_decomposition_torch/csrc/{name}.cu" for name in REPLACES
 }
+# the depth-generic programs (K = 13..48), which the entry points above hand deep chains to
+GENERIC_SOURCES = {name: f"slam_decomposition_torch/csrc/{name}_generic.cu" for name in REPLACES}
 # stated tolerances (see each check for the reason; the readings they were
 # set from are in PERF.md)
 ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
@@ -152,9 +175,11 @@ GENERAL_CLASS_B, GENERAL_CLASS_THRESH, GENERAL_CLASS_MIN = 10_000, 1e-9, 0.99
 GENERAL_LBFGS_B, GENERAL_LBFGS_MIN = 2000, 0.99
 GENERAL_V2_RESTARTS = 256
 GENERAL_CHAIN_B, GENERAL_VERDICT_FRAC = 2000, 0.99
-# depths 4 to 13 on 500 Haar targets and the path each takes by rule (the
-# kernels are instantiated for depths 1..12)
-DEPTH_DEEP = (*((k, "kernels") for k in range(4, 13)), (13, "general"))
+# depths 4 to 12 and six of 13..48 on 500 Haar targets, and depth 49, and the
+# path each takes by rule (the kernels cover depths 1..48: 1..12 as template
+# instances, 13..48 through the depth-generic programs); depth 49 is a
+# routing check only, no solve
+DEPTH_DEEP = (*((k, "kernels") for k in (*range(4, 13), 13, 16, 20, 24, 32, 48)), (49, "general"))
 
 
 class Basis(NamedTuple):
@@ -184,6 +209,12 @@ QUARTER_ISWAP = Basis("frac", "quarter-iSwap", math.pi / 8, (2, 3, 4, 5, 6),
 EIGHTH_ISWAP = Basis("eighth", "eighth-iSwap", math.pi / 16, tuple(range(2, 13)),
                      {2: 3, 3: 88, 4: 865, 5: 4460, 6: 14074, 7: 30125, 8: 46431, 9: 3554, 10: 383, 11: 17},
                      0.9999, ((8, 1000, 8), (10, 500, 9)), tuple(range(7, 13)))
+# depths 4..22 (the JAX package's too, tests/test_torch_sixteenth_iswap.py);
+# parity at the first generic depth, the busiest, and two small late runs
+SIXTEENTH_ISWAP = Basis("sixteenth", "sixteenth-iSwap", math.pi / 32, tuple(range(2, 25)),
+                        {4: 4, 5: 23, 6: 64, 7: 252, 8: 613, 9: 1540, 10: 2920, 11: 5354, 12: 8720, 13: 12870,
+                         14: 17255, 15: 21618, 16: 24813, 17: 2555, 18: 999, 19: 314, 20: 69, 21: 15, 22: 2},
+                        0.9999, ((13, 1000, 13), (16, 500, 15)), (13, 16, 19, 22))
 # the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
 RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
 
@@ -197,9 +228,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def timed_ms(fn):
-    """Result and device milliseconds of fn() after one warm call."""
-    fn()
+def timed_ms(fn, warm=True):
+    """Result and device milliseconds of fn() after one warm call (without
+    ``warm``, of its first call: the plain versions of the deep chains, one
+    run of which takes seconds, after a shorter run of the same shapes)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -224,34 +258,38 @@ def phase_device():
 
 def phase_build():
     from slam_decomposition_torch.ops import _build
-    from slam_decomposition_torch.ops.chain_kernels import KERNEL_KS
+    from slam_decomposition_torch.ops.chain_kernels import INSTANCE_KS
 
     info = _build.build()
     print(f"[build] {info['seconds']:.1f} s nvcc -> {info['path'].name}")
     regs = _build.ptxas_summary(info["ptxas"])
     for entry, r in sorted(regs.items()):
-        m = re.search(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb(\d)E)?", entry)
-        name = f"{m.group(1)}<{m.group(2)}{', cost' if m.group(3) == '1' else ''}>" if m else entry
+        m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", entry)
+        name = f"{m.group(1)}<{m.group(2) or 'k'}{', cost' if m.group(3) == '1' else ''}>" if m else entry
         print(f"[build] ptxas {name}: {r.get('registers')} registers, "
               f"{r.get('stack_frame')} B stack, {r.get('spill_stores')} B spill stores, "
               f"{r.get('spill_loads')} B spill loads")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and r.get("stack_frame", 1 << 30) <= STACK_MAX,
               f"{name} spills or keeps arrays in local memory")
     # Adam with and without the cost, the LM and the polish, each at every k
-    want = 4 * len(KERNEL_KS)
+    # of an instance, and each once as a depth-generic program
+    want = 4 * len(INSTANCE_KS) + 4
     check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
+    generic_ks = (12, *(k for k, path in DEPTH_DEEP if path == "kernels" and k > max(INSTANCE_KS)))
     for name in REPLACES:
-        for k in KERNEL_KS:
-            o = _build.occupancy(name, k)
-            print(f"[build] occupancy {name}<{k}>: {o['blocks']} resident blocks x {o['threads']} threads = "
-                  f"{o['warps']} warps per SM (room for {o['room']} by shared memory); {o['smem']} B of "
-                  f"{'dynamic' if o['dynamic'] else 'static'} shared memory a block")
-            # 12 resident warps, or where a block's shared memory leaves room
-            # for fewer (Adam from K = 9, the polish from K = 10), every block
-            # that room holds: the registers must not cost a resident block
-            need = min(12 // (o["threads"] // 32), o["room"])
-            check(o["blocks"] >= need, f"{name}<{k}> keeps {o['blocks']} blocks per SM resident, needs {need}")
+        for generic, ks in ((False, INSTANCE_KS), (True, generic_ks)):
+            for k in ks:
+                o = _build.occupancy(name, k, generic=generic)
+                print(f"[build] occupancy {name}{'_generic' if generic else ''}<{k}>: {o['blocks']} resident blocks x "
+                      f"{o['threads']} threads ({o['lanes']} lanes) = {o['warps']} warps per SM (room for {o['room']} "
+                      f"by shared memory); {o['smem']} B of {'dynamic' if o['dynamic'] else 'static'} shared memory a block")
+                # 12 resident warps, or where a block's shared memory leaves
+                # room for fewer (Adam from K = 9, the polish from K = 10, the
+                # generic programs' blocks of up to 227 KB), every block that
+                # room holds: the registers must not cost a resident block
+                need = min(12 // (o["threads"] // 32), o["room"])
+                check(o["blocks"] >= need, f"{name}<{k}> keeps {o['blocks']} blocks per SM resident, needs {need}")
     return regs
 
 
@@ -278,29 +316,39 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
     chain of ``gate`` (default sqiSwap); fills stats[kernel] with max_abs_err
     and, under the label "k<k><tag>", lanes, ms, plain_ms and bound."""
     from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
+    from slam_decomposition_torch.tools.inputs import adam_ulp_spread, best_restart, kernel_inputs
     from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
     for k in ks:
         g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, restarts, dev, gate).values()
         label = f"k{k}{tag}"
+        generic = k > max(ck.INSTANCE_KS)  # the depth-generic programs; their plain runs take seconds
 
         # Adam: f32 association order differs, and Adam's m/sqrt(v) step
         # amplifies it on lanes whose gradient components sit near zero
-        # (0.08-0.1% of lanes beyond 5e-5 after 25 steps on the H100), so
-        # lanes are compared after 25 steps with a lane fraction, and the
-        # 100-step results by their cost distribution.
+        # (0.08-0.1% of lanes beyond 5e-5 after 25 steps on the H100 at
+        # n <= 78, more on deeper chains), so lanes are compared after 25
+        # steps with a lane fraction, and the 100-step results by their cost
+        # distribution. From depth 13 a lane's bound is the larger of 5e-5
+        # and the plain result's own shift under a one-ulp move of its start.
         s25 = sched[:ADAM_PARITY_ITERS].contiguous()
-        d = (ck.adam_chain(x0, lanes_t, g32, s25) - ck.adam_chain_ref(x0, lanes_t, g32, s25)).abs().amax(1)
-        frac = (d <= ADAM_ATOL).float().mean().item()
+        ref25 = ck.adam_chain_ref(x0, lanes_t, g32, s25)
+        d = (ck.adam_chain(x0, lanes_t, g32, s25) - ref25).abs().amax(1)
+        frac = frac_atol = (d <= ADAM_ATOL).float().mean().item()
+        spread = ""
+        if generic:
+            bound = adam_ulp_spread(x0, lanes_t, g32, s25, ref25).clamp_min(ADAM_ATOL)
+            frac = (d <= bound).float().mean().item()
+            spread = (f", within the plain result's one-ulp spread where larger {frac:.5f} (spread beyond "
+                      f"{ADAM_ATOL:g} on {(bound > ADAM_ATOL).float().mean().item():.5f} of lanes)")
         xa, ms = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched))
-        xa_ref, plain_ms = timed_ms(lambda: ck.adam_chain_ref(x0, lanes_t, g32, sched))
+        xa_ref, plain_ms = timed_ms(lambda: ck.adam_chain_ref(x0, lanes_t, g32, sched), warm=not generic)
         ca = ck.square_cost(xa, lanes_t, g32)
         ca_ref = ck.square_cost(xa_ref, lanes_t, g32)
         dfrac = abs((ca < 1e-2).float().mean().item() - (ca_ref < 1e-2).float().mean().item())
         print(f"[parity] adam_chain {label} L={x0.shape[0]}: {ADAM_PARITY_ITERS} steps max|dx| {d.max().item():.3e}, "
-              f"{frac:.5f} of lanes within {ADAM_ATOL:g} (need >= {ADAM_LANE_FRAC}); 100 steps "
+              f"{frac_atol:.5f} of lanes within {ADAM_ATOL:g}{spread} (need >= {ADAM_LANE_FRAC}); 100 steps "
               f"|d frac(cost<1e-2)| {dfrac:.4f} (need <= {ADAM_COST_FRAC_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         check(frac >= ADAM_LANE_FRAC and dfrac <= ADAM_COST_FRAC_TOL, f"adam_chain {label} disagrees with its plain version")
         st = stats["adam_chain"]
@@ -320,7 +368,7 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
         # LM: compare ||r||^2 per lane; accept/reject decisions near the f32
         # floor may differ, hence the lane fraction (the JAX kernel test's bound)
         (xl, fl), ms = timed_ms(lambda: ck.lm_chain(xa, lanes_t, g32))
-        (_, fl_ref), plain_ms = timed_ms(lambda: ck.lm_chain_ref(xa, lanes_t, g32))
+        (_, fl_ref), plain_ms = timed_ms(lambda: ck.lm_chain_ref(xa, lanes_t, g32), warm=not generic)
         ok = torch.isclose(fl, fl_ref, rtol=LM_RTOL, atol=LM_ATOL).float().mean().item()
         err = (fl - fl_ref).abs().max().item()
         print(f"[parity] lm_chain {label} L={xa.shape[0]}: max|d||r||^2| {err:.3e}, {ok:.5f} of lanes within "
@@ -335,7 +383,7 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
 
         # polish from each target's best restart
         xb = best_restart(xl, fl, restarts)
-        err, ms, plain_ms = polish_parity(label, xb, T, g64)
+        err, ms, plain_ms = polish_parity(label, xb, T, g64, warm_plain=not generic)
         st = stats["polish_chain"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         fresh = fresh_iterations(ck.polish_chain, xb, T, g64, ck.LM_ITERS)
@@ -344,7 +392,7 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
                      "bound": bound_line("polish_chain", label, mfu.polish_launch(k, xb.shape[0], ck.LM_ITERS, fresh), ms)}
 
 
-def polish_parity(label, x, T, g64):
+def polish_parity(label, x, T, g64, warm_plain=True):
     """The polish kernel against its plain version from the same x (L, n)
     f64: the certificates must give the same <= THRESH verdicts and, on
     POLISH_COST_FRAC of the lanes both certify, agree within 10% of the bar,
@@ -358,7 +406,7 @@ def polish_parity(label, x, T, g64):
     from slam_decomposition_torch.opt.gauss_newton import certificate
 
     (xp, fp), ms = timed_ms(lambda: ck.polish_chain(x, T, g64))
-    (_, fp_ref), plain_ms = timed_ms(lambda: ck.polish_chain_ref(x, T, g64))
+    (_, fp_ref), plain_ms = timed_ms(lambda: ck.polish_chain_ref(x, T, g64), warm=warm_plain)
     c, c_ref = certificate(fp), certificate(fp_ref)
     verdict = ((c <= THRESH) == (c_ref <= THRESH)).double().mean().item()
     both = (c <= THRESH) & (c_ref <= THRESH)
@@ -375,6 +423,71 @@ def polish_parity(label, x, T, g64):
     check(verdict >= POLISH_VERDICT_FRAC and close >= POLISH_COST_FRAC and cert_err <= CERT_ATOL,
           f"polish_chain {label} disagrees with its plain version")
     return err, ms, plain_ms
+
+
+def phase_generic_vs_instance(stats, k=12, targets=DEPTH_DEEP_B, restarts=API_RESTARTS):
+    """At depth k, where both exist, the depth-generic programs (their C
+    entries: the wrappers take them from k = 13) against the depth-k
+    instances on the same inputs, within phase 3's limits, both timed (one
+    launch after a warm one each). Fills stats[kernel]["generic_k<k>"]."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import certificate
+    from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
+
+    dev = torch.device("cuda")
+    g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, restarts, dev).values()
+    L, p, i = x0.shape[0], ck._p, ctypes.c_int
+
+    def adam_generic(s):
+        out = torch.empty_like(x0)
+        ck._launch("slam_adam_chain_generic", p(x0), p(lanes_t), p(g32), p(s), i(s.shape[0]), i(k), i(L), p(out), None)
+        return out
+
+    def lm_generic(x):
+        xo, fo = torch.empty_like(x), torch.empty(L, device=dev)
+        ck._launch("slam_lm_chain_generic", p(x), p(lanes_t), p(g32), i(ck.LM32_ITERS), i(k), i(L), p(xo), p(fo))
+        return xo, fo
+
+    def polish_generic(x):
+        xo, fo = torch.empty_like(x), torch.empty(x.shape[0], device=dev, dtype=torch.float64)
+        ck._launch("slam_polish_chain_generic", p(x), p(T), p(g64), i(ck.LM_ITERS), i(k), i(x.shape[0]), p(xo), p(fo))
+        return xo, fo
+
+    s25 = sched[:ADAM_PARITY_ITERS].contiguous()
+    d = (adam_generic(s25) - ck.adam_chain(x0, lanes_t, g32, s25)).abs().amax(1)
+    frac = (d <= ADAM_ATOL).float().mean().item()
+    xg, ms_g = timed_ms(lambda: adam_generic(sched))
+    xi, ms_i = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched))
+    dfrac = abs((ck.square_cost(xg, lanes_t, g32) < 1e-2).float().mean().item()
+                - (ck.square_cost(xi, lanes_t, g32) < 1e-2).float().mean().item())
+    print(f"[generic] adam_chain k={k} L={L}, generic program against the instance: {ADAM_PARITY_ITERS} steps max|dx| "
+          f"{d.max().item():.3e}, {frac:.5f} of lanes within {ADAM_ATOL:g} (need >= {ADAM_LANE_FRAC}); 100 steps |d frac("
+          f"cost<1e-2)| {dfrac:.4f} (need <= {ADAM_COST_FRAC_TOL}); generic {ms_g:.3f} ms, instance {ms_i:.3f} ms")
+    check(frac >= ADAM_LANE_FRAC and dfrac <= ADAM_COST_FRAC_TOL, f"adam_chain k={k}: the generic program disagrees with the instance")
+    stats["adam_chain"][f"generic_k{k}"] = {"lanes": L, "generic_ms": ms_g, "instance_ms": ms_i}
+    (_, flg), ms_g = timed_ms(lambda: lm_generic(xi))
+    (xl, fli), ms_i = timed_ms(lambda: ck.lm_chain(xi, lanes_t, g32))
+    ok = torch.isclose(flg, fli, rtol=LM_RTOL, atol=LM_ATOL).float().mean().item()
+    print(f"[generic] lm_chain k={k} L={L}: max|d||r||^2| {(flg - fli).abs().max().item():.3e}, {ok:.5f} of lanes within "
+          f"rtol {LM_RTOL:g} atol {LM_ATOL:g} (need >= {LM_LANE_FRAC}); generic {ms_g:.3f} ms, instance {ms_i:.3f} ms")
+    check(ok >= LM_LANE_FRAC, f"lm_chain k={k}: the generic program disagrees with the instance")
+    stats["lm_chain"][f"generic_k{k}"] = {"lanes": L, "generic_ms": ms_g, "instance_ms": ms_i}
+    xb = best_restart(xl, fli, restarts)
+    (xpg, fpg), ms_g = timed_ms(lambda: polish_generic(xb))
+    (_, fpi), ms_i = timed_ms(lambda: ck.polish_chain(xb, T, g64))
+    c, c_i = certificate(fpg), certificate(fpi)
+    verdict = ((c <= THRESH) == (c_i <= THRESH)).double().mean().item()
+    both = (c <= THRESH) & (c_i <= THRESH)
+    close = ((c - c_i)[both].abs() <= POLISH_COST_ATOL).double().mean().item() if both.any() else 1.0
+    cert = c <= THRESH
+    cert_err = (c - ck.square_cost(xpg, T, g64))[cert].abs().max().item() if cert.any() else 0.0
+    print(f"[generic] polish_chain k={k} L={xb.shape[0]}: certified {int(cert.sum())} vs instance {int((c_i <= THRESH).sum())}, "
+          f"same verdict on {verdict:.5f} of lanes (need >= {POLISH_VERDICT_FRAC}), within {POLISH_COST_ATOL:g} on {close:.5f} "
+          f"of those both certify (need >= {POLISH_COST_FRAC}), certificate vs true f64 cost {cert_err:.3e} (need <= "
+          f"{CERT_ATOL:g}); generic {ms_g:.3f} ms, instance {ms_i:.3f} ms")
+    check(verdict >= POLISH_VERDICT_FRAC and close >= POLISH_COST_FRAC and cert_err <= CERT_ATOL,
+          f"polish_chain k={k}: the generic program disagrees with the instance")
+    stats["polish_chain"][f"generic_k{k}"] = {"lanes": xb.shape[0], "generic_ms": ms_g, "instance_ms": ms_i}
 
 
 def polish_parity_on_init(label, U, ks, dev):
@@ -689,6 +802,16 @@ def phase_basis(card, counted, stats, basis_spec):
     warm = TemplateOptimizer(basis, objective="square", spanning_range=list(depths), override_fail=True)
     warm.approximate_from_distribution(Uw, spanning_ranges=ranges_of(np.maximum(monodromy_ks_batch(cov, Uw, dev), 2)))
     opt = TemplateOptimizer(basis, objective="square", spanning_range=list(depths), override_fail=True)
+    draws = []  # host seconds of each depth's draw of starts (for all B targets, in the JAX package's order)
+    init = opt._init_params
+
+    def timed_init(*args):
+        t0 = time.perf_counter()
+        out = init(*args)
+        draws.append(time.perf_counter() - t0)
+        return out
+
+    opt._init_params = timed_init
     res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U, spanning_ranges=ranges_of(lo)))
     share = float(res.success.mean())
     certified = certified_share(basis, res, U, dev)
@@ -699,7 +822,8 @@ def phase_basis(card, counted, stats, basis_spec):
           f"{_hist(res.cycles)} (monodromy {_hist(ks)}); success {int(res.success.sum())}/{B} = {share:.5f} (need >= "
           f"{basis_spec.success_min}), confirmed in f64 {certified:.5f}; worst loss {res.loss.max():.3e}")
     print(f"{tag} {card}: " + ", ".join(f"k={k} {t:.3f} s" for k, t in opt.k_seconds.items())
-          + f", call {wall:.3f} s -> {res.success.sum() / wall:.1f} targets/s; peak device memory {peak:.0f} MiB")
+          + f", call {wall:.3f} s -> {res.success.sum() / wall:.1f} targets/s; peak device memory {peak:.0f} MiB; "
+          f"drawing starts on the host {sum(draws):.3f} s over {len(draws)} depths ({sum(draws) / wall:.1%} of the call)")
     check(opt.solver_paths == {k: "kernels" for k in depths if active[k]}, f"paths {opt.solver_paths}")
     check_counts(name, launches, general, want, 0)
     check((res.cycles[res.success] >= lo[res.success]).all(), "a target is solved below its monodromy depth")
@@ -742,9 +866,10 @@ def phase_basis(card, counted, stats, basis_spec):
 def phase_depth(card, counted, stats):
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+    from slam_decomposition_torch.opt.gauss_newton import takes_kernels
     from slam_decomposition_torch.opt.optimizer import CHUNK as API_CHUNK, TemplateOptimizer
     from slam_decomposition_torch.opt.samplers import haar_sample
-    from slam_decomposition_torch.ops.chain_kernels import KERNEL_KS
+    from slam_decomposition_torch.ops.chain_kernels import INSTANCE_KS, KERNEL_KS
 
     dev = torch.device("cuda")
     basis = _sqiswap_basis()
@@ -776,19 +901,24 @@ def phase_depth(card, counted, stats):
           f"launches {launches}, {wall:.3f} s")
     check(share >= DEPTH_CNOT_MIN, "cnot basis at depth 3")
     check_counts("cnot basis at depth 3", launches, general, math.ceil(DEPTH_CNOT_B / API_CHUNK), 0)
-    # (c) depths 4 to 13: which path each takes, by rule
+    # (c) depths 4 to 48 on the kernels, and 49 routed by rule
     U = haar_sample(DEPTH_DEEP_B, seed=7)
     for k, want in DEPTH_DEEP:
+        if want == "general":  # a routing check: the kernels cover depths 1..48
+            opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
+            path = opt._solver_for(k, basis(k))[1]
+            print(f"[depth] sqiswap k={k}: path {path} (by rule: the kernels cover k in {KERNEL_KS[0]}..{KERNEL_KS[-1]}, "
+                  f"n = {6 * (k + 1)} parameters; no solve)")
+            check(path == want and not takes_kernels(basis(k).chain_gates), f"depth {k}: path {path}")
+            continue
         opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
         res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
         share = certified_share(basis, res, U, dev)
-        print(f"[depth] sqiswap k={k}, haar {DEPTH_DEEP_B}: path {opt.solver_paths[k]} (by rule: the kernels are "
-              f"instantiated for k in {KERNEL_KS}, n = {6 * (k + 1)} parameters), success {share:.5f}, launches "
-              f"{launches}, general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
+        program = "instance" if k in INSTANCE_KS else "depth-generic program"
+        print(f"[depth] sqiswap k={k}, haar {DEPTH_DEEP_B}: path {opt.solver_paths[k]} ({program}, n = {6 * (k + 1)} "
+              f"parameters), success {share:.5f}, launches {launches}, general calls {general}, {wall:.3f} s, peak {peak:.0f} MiB")
         check(opt.solver_paths[k] == want and share >= DEPTH_CNOT_MIN, f"depth {k}: path {opt.solver_paths[k]}, success {share}")
-        chunks = math.ceil(DEPTH_DEEP_B / API_CHUNK)
-        on_kernels = want == "kernels"
-        check_counts(f"depth {k}", launches, general, chunks if on_kernels else 0, 0 if on_kernels else chunks)
+        check_counts(f"depth {k}", launches, general, math.ceil(DEPTH_DEEP_B / API_CHUNK), 0)
     # (d) the kernels against their plain versions at the lanes (a), (b) and
     # (c) launch them with, outside the counted runs
     phase_parity(stats, ks=(1,), targets=4 * DEPTH_TILE, restarts=API_RESTARTS)
@@ -896,6 +1026,7 @@ def main() -> int:
         phase_build()
         stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
         phase_parity(stats)
+        phase_generic_vs_instance(stats)
         counts, main_rate = phase_main_path(card)
         t_counts, t_polish_err = phase_transpile(card, main_rate)
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
@@ -903,9 +1034,10 @@ def main() -> int:
         phase_api(card, counted, stats)
         phase_basis(card, counted, stats, QUARTER_ISWAP)
         phase_basis(card, counted, stats, EIGHTH_ISWAP)
+        phase_basis(card, counted, stats, SIXTEENTH_ISWAP)
         phase_depth(card, counted, stats)
         phase_general(card, counted)
-        print(f"[result] launches of the API, quarter-iSwap, eighth-iSwap, depth and general-solver runs: "
+        print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, depth and general-solver runs: "
               f"{counted.total}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
@@ -916,6 +1048,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
+            "source_generic": GENERIC_SOURCES[name],
             "replaces": REPLACES[name],
             "launches": counts[name],
             "max_abs_err": stats[name]["max_abs_err"],
@@ -926,13 +1059,17 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes a per-lane solve
             "flops": stats[name]["k2"]["bound"]["flops"],
             "lanes": stats[name]["k2"]["lanes"],
+            # the generic program against the k = 12 instance on the same lanes
+            "ms_k12_generic": stats[name]["generic_k12"]["generic_ms"],
+            "ms_k12_instance": stats[name]["generic_k12"]["instance_ms"],
             # the other instances and shapes: k3 at the main path's lanes, the
-            # others at the lanes the API, quarter-iSwap, eighth-iSwap and
-            # depth phases launch
+            # others at the lanes the API, quarter-, eighth- and
+            # sixteenth-iSwap and depth phases launch (k13 and deeper: the
+            # depth-generic programs)
             **{
                 f"{key}_{label}": val
                 for label, shape in stats[name].items()
-                if label not in ("k2", "max_abs_err")
+                if label != "k2" and isinstance(shape, dict) and "bound" in shape
                 for key, val in (
                     ("lanes", shape["lanes"]),
                     ("ms", shape["ms"]),

@@ -309,6 +309,12 @@ template <int S, class Th> struct HostTeam {
   }
 };
 
+// Chain depths with a kernel (ops/chain_kernels.py KERNEL_KS): 1..kInstMaxK
+// as one template instance each, kInstMaxK + 1..kMaxK through the
+// depth-generic programs, in which K is a runtime argument.
+constexpr int kInstMaxK = 12;
+constexpr int kMaxK = 48;
+
 #if defined(__CUDACC__)
 // ------------------------------------------------------------ launch glue
 
@@ -350,14 +356,45 @@ constexpr size_t kSmemPerSm = 228 * 1024, kSmemReservedPerBlock = 1024;
 template <class S> constexpr int kSmemBlocks = (int)(kSmemPerSm / (sizeof(S) + kSmemReservedPerBlock));
 constexpr int min_blocks(int regs, int smem) { return regs < smem ? regs : smem; }
 
-// The chain depths the kernels are instantiated for (ops/chain_kernels.py
-// KERNEL_KS): f(std::integral_constant<int, K>{}) for K == k in 1..kMaxK,
-// else cudaErrorInvalidValue.
-constexpr int kMaxK = 12;
+// The chain depths the kernels are instantiated for:
+// f(std::integral_constant<int, K>{}) for K == k in 1..kInstMaxK, else
+// cudaErrorInvalidValue. Deeper chains, to kMaxK, run the depth-generic
+// programs (adam_generic.cuh, lm_generic.cuh), whose entry points the
+// instances' entry points hand them to.
 template <int K = 1, class F> cudaError_t by_k(int k, F&& f) {
-  if constexpr (K > kMaxK) return cudaErrorInvalidValue;
+  if constexpr (K > kInstMaxK) return cudaErrorInvalidValue;
   else return k == K ? f(std::integral_constant<int, K>{}) : by_k<K + 1>(k, f);
 }
 #endif
+
+// ------------------------------------------------------------ generic blocks
+// A depth-generic block holds its gate lists and `lanes` lane workspaces in
+// dynamic shared memory, sized from K at launch. Lanes a block: as many
+// workspaces of lane_bytes as fit beside the gate lists in the 227 KB a
+// block may use, at most max_lanes (the instances' lanes a block), in whole
+// units of `unit` lanes (a warp's teams: a team's sums shuffle over the
+// full warp), and at least one unit.
+constexpr size_t kBlockSmemMax = 227 * 1024;
+
+SLAM_HD size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// Carves 16-byte aligned arrays out of a lane's workspace in order; with
+// base == nullptr it only counts their bytes.
+struct Carve {
+  unsigned char* base;
+  size_t off;
+  template <typename T> SLAM_HD T* take(size_t n) {
+    T* q = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += align16(sizeof(T) * n);
+    return q;
+  }
+};
+
+SLAM_HD int generic_lanes(size_t lane_bytes, size_t gate_bytes, int max_lanes, int unit) {
+  const size_t fit = gate_bytes < kBlockSmemMax ? (kBlockSmemMax - gate_bytes) / lane_bytes : 0;
+  int lanes = fit < (size_t)max_lanes ? (int)fit : max_lanes;
+  lanes -= lanes % unit;
+  return lanes < unit ? unit : lanes;
+}
 
 }  // namespace slam

@@ -30,19 +30,28 @@ NVCC_FLAGS = [
 ]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> argtypes (the trailing c_void_p is the CUDA stream)
+# (the *_generic entries run the depth-generic program at any k in 1..48;
+# the others hand k >= 13 to it and run their instance at k <= 12)
 SIGNATURES = {
     "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],  # xout, fout (may be null)
     "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_adam_chain_generic": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_lm_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_polish_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 MAX_THREADS_PER_SM = 2048  # sm_90
 # kernel -> its occupancy query (k, *resident blocks per SM, *threads per block,
-# *shared memory bytes a block, *whether that is dynamic shared memory)
+# *shared memory bytes a block, *whether that is dynamic shared memory) for
+# the depth-k instance, and that of the depth-generic program (the same, with
+# *lanes a block last: its shared memory is always dynamic)
 OCCUPANCY = {
     "adam_chain": "slam_adam_chain_occupancy",
     "lm_chain": "slam_lm_chain_occupancy",
     "polish_chain": "slam_polish_chain_occupancy",
 }
+OCCUPANCY_GENERIC = {name: f"slam_{name}_generic_occupancy" for name in OCCUPANCY}
+TEAM = {"adam_chain": 4, "lm_chain": 32, "polish_chain": 32}  # threads a lane
 
 
 def _sources():
@@ -115,7 +124,7 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in OCCUPANCY.values():
+    for name in (*OCCUPANCY.values(), *OCCUPANCY_GENERIC.values()):
         fn = getattr(lib, name)
         fn.argtypes = [_I, *[ctypes.POINTER(_I)] * 4]
         fn.restype = ctypes.c_int
@@ -130,26 +139,30 @@ def error_string(err: int) -> str:
     return load().slam_error_string(err).decode()
 
 
-def occupancy(kernel: str, k: int) -> dict:
-    """{"blocks", "threads", "warps", "smem", "dynamic", "room"}: resident
-    blocks per SM of the kernel's k-instance on the current device (the CUDA
+def occupancy(kernel: str, k: int, generic: bool = False) -> dict:
+    """{"blocks", "threads", "warps", "smem", "dynamic", "room", "lanes"}:
+    resident blocks per SM of the kernel's k-instance (with ``generic``, of
+    its depth-generic program at depth k) on the current device (the CUDA
     occupancy calculator), its threads per block, the resident warps per SM,
     its shared memory a block in bytes, whether that is dynamic shared
-    memory (a block's workspace past the 48 KB a kernel may declare), and
-    the blocks an SM has room for by shared memory and threads alone (so
-    ``blocks < room`` means the registers cost resident blocks)."""
+    memory (a block's workspace past the 48 KB a kernel may declare; always
+    for the generic program), the blocks an SM has room for by shared
+    memory and threads alone (so ``blocks < room`` means the registers cost
+    resident blocks), and its lanes a block."""
     lib = load()
-    blocks, threads, smem, dynamic = _I(0), _I(0), _I(0), _I(0)
-    err = getattr(lib, OCCUPANCY[kernel])(k, *map(ctypes.byref, (blocks, threads, smem, dynamic)))
+    blocks, threads, smem, flag = _I(0), _I(0), _I(0), _I(0)
+    query = (OCCUPANCY_GENERIC if generic else OCCUPANCY)[kernel]
+    err = getattr(lib, query)(k, *map(ctypes.byref, (blocks, threads, smem, flag)))
     if err != 0:
-        raise RuntimeError(f"{OCCUPANCY[kernel]}(k={k}) failed: {error_string(err)} ({err})")
+        raise RuntimeError(f"{query}(k={k}) failed: {error_string(err)} ({err})")
     per_sm, reserved = _I(0), _I(0)
     err = lib.slam_smem_per_sm(ctypes.byref(per_sm), ctypes.byref(reserved))
     if err != 0:
         raise RuntimeError(f"slam_smem_per_sm failed: {error_string(err)} ({err})")
     room = min(per_sm.value // (smem.value + reserved.value), MAX_THREADS_PER_SM // threads.value)
     return {"blocks": blocks.value, "threads": threads.value, "warps": blocks.value * threads.value // 32,
-            "smem": smem.value, "dynamic": bool(dynamic.value), "room": room}
+            "smem": smem.value, "dynamic": generic or bool(flag.value), "room": room,
+            "lanes": flag.value if generic else threads.value // TEAM[kernel]}
 
 
 def sass_instructions() -> dict:

@@ -28,10 +28,12 @@ import torch
 
 from slam_decomposition_torch.models.templates import chain_unitary
 
-# chain depths the CUDA kernels are instantiated for (csrc/chain_common.cuh
-# kMaxK): n = 6(k+1) <= 78, at most three parameters per thread of the LM's
-# warp (csrc/lm_team.cuh); depth 13 and deeper take the general solver
-KERNEL_KS = tuple(range(1, 13))
+# chain depths with a CUDA kernel (csrc/chain_common.cuh kMaxK): 1..12 as
+# one template instance each (INSTANCE_KS, kInstMaxK), 13..48 (n = 84..294)
+# through the depth-generic programs (csrc/*_generic.cu*, K a runtime
+# argument); depth 49 and deeper take the general solver
+INSTANCE_KS = tuple(range(1, 13))
+KERNEL_KS = tuple(range(1, 49))
 # the main path's schedule (JAX bench.py:88-91, pallas_chain.py:688-699)
 ADAM_ITERS, ADAM_LR, LM32_ITERS, LM_ITERS = 100, 0.1, 8, 6
 CG_EXTRA_ITERS = 8  # CG runs n + 8 iterations (JAX gauss_newton._spd_solve)
@@ -249,8 +251,8 @@ def _check_lanes(x, tgt, gates, xdtype, cdtype):
 
 def _kernel_target(x, k):
     """True for a CUDA launch, False for the CPU's plain version; raises
-    for any other device and for depths without a kernel instance (the
-    solver routes those to its general path before it gets here)."""
+    for any other device and for depths without a kernel (the solver routes
+    those to its general path before it gets here)."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":

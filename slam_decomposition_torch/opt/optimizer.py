@@ -11,7 +11,7 @@ Which solver runs (``TemplateOptimizer._solver_for``):
 
 * ``method="auto"`` with the square or basic objective rides the phase
   residual, the reduced / Weyl / Makhlin objectives the Makhlin residual,
-  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..12
+  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..48
   under the square objective takes the three CUDA kernels, everything else
   the general solver in plain PyTorch;
 * ``method="gauss_newton"`` takes the phase residual for an objective

@@ -1,6 +1,7 @@
 """Seeded inputs of the three chain kernels at the solver's shapes, shared by
 the scripts that time or check them on the card (chip_smoke.py phase 3,
-tools/time_iters.py), so that their readings are of the same data."""
+tools/time_iters.py), so that their readings are of the same data; and the
+f32 spread of the plain Adam that the deep chains' parity checks allow."""
 
 from __future__ import annotations
 
@@ -50,3 +51,20 @@ def best_restart(xl: torch.Tensor, fl: torch.Tensor, restarts: int) -> torch.Ten
     targets = fl.shape[0] // restarts
     best = torch.argmin(fl.view(targets, restarts), dim=1)
     return xl.view(targets, restarts, -1)[torch.arange(targets, device=xl.device), best].double().contiguous()
+
+
+def adam_ulp_spread(x0: torch.Tensor, tgt: torch.Tensor, gates: torch.Tensor, sched: torch.Tensor,
+                    ref: torch.Tensor | None = None) -> torch.Tensor:
+    """(L,) per lane, how far the plain f32 Adam's result moves when its
+    start moves by one f32 ulp (each entry of x0 to its next float up, then
+    down): the part of the result that f32 rounding leaves undetermined.
+    Adam's m / sqrt(v) normalises gradient components that sit near zero, so
+    on deep chains (n ~ 300) a few lanes in ten amplify rounding past the
+    25-step parity bound (PERF.md section 6); there two f32 programs that
+    sum in different orders can agree no better than this. ``ref``: the
+    plain result from x0, where the caller has it."""
+    ref = ck.adam_chain_ref(x0, tgt, gates, sched) if ref is None else ref
+    return torch.maximum(*(
+        (ck.adam_chain_ref(torch.nextafter(x0, torch.full_like(x0, bound)), tgt, gates, sched) - ref).abs().amax(1)
+        for bound in (math.inf, -math.inf)
+    ))

@@ -2,7 +2,7 @@
 not take on every run, and the comparisons both share.
 
     python -m slam_decomposition_torch.tools.optimizer_readings [--seeds 1 2] [--lbfgs-targets 200]
-        [--readings api depth chain frac eighth]
+        [--readings api depth chain frac eighth sixteenth]
 
 Per seed of the random starts (chip_smoke.py runs seed 0 of the first two and
 seed 9 of the third; its limits were set from these readings beside its own):
@@ -24,7 +24,12 @@ seed 9 of the third; its limits were set from these readings beside its own):
 * the eighth-iSwap phase: the same on conversion_gain_gate(0, 0, 0, pi/16,
   1) templates over each target's range to 12, then the depth-8 chain on
   1000 depth-8 targets and the depth-10 chain on 500 targets of depth 9 or
-  10 through both paths.
+  10 through both paths;
+* the sixteenth-iSwap phase: the same on conversion_gain_gate(0, 0, 0,
+  pi/32, 1) templates over each target's range to 24 (depths 13..48 run
+  the depth-generic kernels), then the depth-13 chain on 1000 depth-13
+  targets and the depth-16 chain on 500 targets of depth 15 or 16 through
+  both paths.
 
 Then the launch count of one L-BFGS solve: the CNOT basis at depth 3 on
 haar_sample(N, seed=2) x 5 restarts under torch.profiler (after one warm
@@ -61,6 +66,7 @@ CHAIN_B, RESTARTS = 2000, 5
 FRACTIONAL = {
     "frac": (math.pi / 8, (2, 3, 4, 5, 6), ((5, 1000, 5),)),
     "eighth": (math.pi / 16, tuple(range(2, 13)), ((8, 1000, 8), (10, 500, 9))),
+    "sixteenth": (math.pi / 32, tuple(range(2, 25)), ((13, 1000, 13), (16, 500, 15))),
 }
 # A restart counts as converged where its f32 score, as a square cost, is at
 # or under this: converged restarts sit at the f32 floor (1e-7 to 1e-5), the

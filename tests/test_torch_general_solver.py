@@ -124,15 +124,16 @@ def test_solve_with_history_shapes_and_lm_trace():
 
 
 def test_routing_by_rule():
-    cg = {k: build_ansatz(cycle_gates([gates.SQISWAP], k)) for k in range(1, 14)}
-    for k in range(1, 13):
+    cg = {k: build_ansatz(cycle_gates([gates.SQISWAP], k)) for k in range(1, 50)}
+    for k in range(1, 49):
         assert takes_kernels(cg[k].chain_gates)
         s = make_solver(cg[k].eval_fn, cg[k].n_params, chain_gates=cg[k].chain_gates, device="cpu")
         assert isinstance(s, ChainSolver) and s.path == "kernels" and s.k == k
-    assert ck.KERNEL_KS == tuple(range(1, 13))
-    # the kernels are instantiated for depths 1..12: depth 13 takes the general path, by rule
-    assert not takes_kernels(cg[13].chain_gates)
-    assert isinstance(make_solver(cg[13].eval_fn, 84, chain_gates=cg[13].chain_gates, device="cpu"), GeneralSolver)
+    assert ck.KERNEL_KS == tuple(range(1, 49)) and ck.INSTANCE_KS == tuple(range(1, 13))
+    # the kernels cover depths 1..48 (13..48 through the depth-generic
+    # programs): depth 49 takes the general path, by rule
+    assert not takes_kernels(cg[49].chain_gates)
+    assert isinstance(make_solver(cg[49].eval_fn, 300, chain_gates=cg[49].chain_gates, device="cpu"), GeneralSolver)
     a = cg[2]
     for kw in (dict(residual="makhlin"), dict(final_cost_fn=costs.basic_cost), dict(lower=a.lower, upper=a.upper)):
         assert not takes_kernels(a.chain_gates, **{k: v for k, v in kw.items() if k != "upper"})
@@ -145,15 +146,16 @@ def test_routing_by_rule():
     assert isinstance(make_solver(a.eval_fn, a.n_params, device="cpu"), GeneralSolver)
 
 
-@pytest.mark.parametrize("k", [1, 4, 5, 7, 13])
+@pytest.mark.parametrize("k", [1, 4, 5, 7, 13, 49])
 def test_every_depth_solves(k):
-    """Depths 1, 4, 5 and 7 take the kernel path (their plain versions
-    here), depth 13 the general path; all certify targets of their class."""
+    """Depths 1, 4, 5, 7 and 13 (the first depth of the depth-generic
+    kernels) take the kernel path (their plain versions here), depth 49 the
+    general path; all certify targets of their class."""
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
     T = a.eval_fn(torch.as_tensor(np.random.default_rng(k).uniform(0, 2 * np.pi, (4, a.n_params)))) if k == 1 else torch.as_tensor(haar_sample(4, seed=k))
     x0 = torch.as_tensor(np.random.default_rng(10 + k).uniform(0, 2 * np.pi, (4, 4, a.n_params)))
     solver = make_solver(a.eval_fn, a.n_params, chain_gates=a.chain_gates, device="cpu")
-    assert solver.path == ("general" if k == 13 else "kernels")
+    assert solver.path == ("general" if k == 49 else "kernels")
     x, f = solver.solve(x0, T)
     assert (f <= THRESH).all(), f
     np.testing.assert_allclose(f.numpy(), costs.square_cost(a.eval_fn(x), T).numpy(), atol=1e-13)

@@ -5,6 +5,7 @@ test, so every pytest worker collects the same tests). Run on the GPU with
 ``python -m pytest tests/test_torch_kernels.py -m cuda``. chip_smoke.py
 repeats these checks at the main path's shapes."""
 
+import ctypes
 import math
 
 import numpy as np
@@ -16,12 +17,16 @@ from slam_decomposition_torch.models.templates import build_ansatz, chain_unitar
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+from slam_decomposition_torch.tools.inputs import adam_ulp_spread
 from slam_decomposition_torch.transpile import kak
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 
 pytestmark = pytest.mark.cuda
-KS = list(range(1, 13))  # every depth the kernels are instantiated for
-LANES = [512, 509]  # 509: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
+# every depth the kernels are instantiated for, then depths of the
+# depth-generic programs (13..48: the first, the sixteenth-iSwap's busiest
+# and deepest, the last)
+KS = [*range(1, 13), 13, 16, 24, 48]
+LANES = [512, 509]  # 509: a partial last block (32 / 24 / 16 / 8 Adam lanes, 4 / 3 / 2 LM and polish lanes a block)
 
 
 @pytest.fixture
@@ -53,9 +58,13 @@ def test_adam_kernel_matches_plain(dev, k, L):
     got = ck.adam_chain(x0, T32, g32, sched)
     assert ck.adam_chain.launches == before + 1
     want = ck.adam_chain_ref(x0, T32, g32, sched)
-    # f32 association order only; 25 steps (the JAX kernel test's bound)
+    # f32 association order only; 25 steps (the JAX kernel test's bound). On
+    # deep chains Adam amplifies f32 rounding past it on some lanes, the
+    # plain version's too: there the bound is the plain result's own shift
+    # under a one-ulp move of the start
     d = (got - want).abs().amax(1)
-    assert (d <= 5e-5).float().mean().item() >= 0.99
+    bound = torch.clamp_min(adam_ulp_spread(x0, T32, g32, sched), 5e-5) if k > max(ck.INSTANCE_KS) else 5e-5
+    assert (d <= bound).float().mean().item() >= 0.99
 
 
 @pytest.mark.parametrize("L", LANES)
@@ -104,12 +113,37 @@ def test_polish_kernel_matches_plain(dev, k, L):
     assert (c - ck.square_cost(xp, T, g64))[ok].abs().max().item() <= 1e-13
 
 
+def test_generic_program_matches_the_k12_instance(dev):
+    """At K = 12 the depth-generic programs' C entries (which the wrappers
+    take from K = 13) against the depth-12 instances on the same lanes:
+    Adam within f32 association, the LM's ||r||^2 within the LM tests'
+    bound, the polish's verdicts equal."""
+    k, L = 12, 509
+    g64, g32, T, T32, x0 = _inputs(k, dev, seed=4, L=L)
+    sched = ck.adam_schedule(100, device=dev)
+    p, i = ck._p, ctypes.c_int
+    xa = ck.adam_chain(x0, T32, g32, sched[:25].contiguous())
+    xg = torch.empty_like(x0)
+    ck._launch("slam_adam_chain_generic", p(x0), p(T32), p(g32), p(sched), i(25), i(k), i(L), p(xg), None)
+    assert ((xg - xa).abs().amax(1) <= 5e-5).float().mean().item() >= 0.99
+    xa = ck.adam_chain(x0, T32, g32, sched)
+    xl, fl = ck.lm_chain(xa, T32, g32, 8)
+    xo, fo = torch.empty_like(xa), torch.empty(L, device=dev)
+    ck._launch("slam_lm_chain_generic", p(xa), p(T32), p(g32), i(8), i(k), i(L), p(xo), p(fo))
+    assert torch.isclose(fo, fl, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
+    x64 = xl.double().contiguous()
+    _, fp = ck.polish_chain(x64, T, g64, 6)
+    xo, fo = torch.empty_like(x64), torch.empty(L, device=dev, dtype=torch.float64)
+    ck._launch("slam_polish_chain_generic", p(x64), p(T), p(g64), i(6), i(k), i(L), p(xo), p(fo))
+    assert torch.equal(certificate(fo) <= 1e-10, certificate(fp) <= 1e-10)
+
+
 def test_kernels_refuse_uninstantiated_depth(dev):
     g64, g32, T, T32, _ = _inputs(2, dev)
-    g13 = torch.cat([g32] * 6 + [g32[:1]]).contiguous()  # k = 13: 84 parameters, no instance
-    x = torch.zeros((T32.shape[0], 84), dtype=torch.float32, device=dev)
+    g49 = torch.cat([g32] * 24 + [g32[:1]]).contiguous()  # k = 49: 300 parameters, no kernel
+    x = torch.zeros((T32.shape[0], 300), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
-        ck.lm_chain(x, T32, g13, 1)
+        ck.lm_chain(x, T32, g49, 1)
 
 
 def test_batch_synth_on_the_card(dev):
