@@ -9,8 +9,8 @@ Phases, one line each (more for the build report):
      resident blocks and warps per SM (CUDA occupancy calculator) of each
      kernel instance (Adam with and without the cost, the LM and the polish
      at k = 1..12: 48 instances; and the four depth-generic programs, in
-     which k is a runtime argument, at k = 12 and at DEPTH_DEEP's deep
-     depths, with their lanes a block) with its shared memory a block,
+     which k is a runtime argument, at k = 12 and at depth_deep()'s deep
+     depths to 79, with their lanes a block) with its shared memory a block,
      static or dynamic; every instance must build without spills and with
      no stack frame beyond the math library's sincos scratch, and keep 12
      warps per SM resident, or every block its shared memory leaves room for
@@ -80,32 +80,47 @@ Phases, one line each (more for the build report):
      through both solver paths at depth 13 (1000 depth-13 targets) and depth
      16 (500 targets of depth 15 or 16), and the kernels against their
      plain versions at the lanes the depth-13, 16, 19 and 22 runs launched;
- 10. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
+ 10. the coverage engine (host code; coordinates on the card): (a) the
+     sqiSwap, quarter- and eighth-iSwap sets built without their caches,
+     each equal row for row to the JAX package's cached pickle (operations,
+     cost, every convex subpolytope's exact rows and name), each build's
+     seconds printed, and the main path's depth histogram over the built
+     sqiSwap set; (b) the parallel-drive basis conversion_gain_gate(0, 0,
+     pi/8, pi/4, 1), both drives on, which has no cache: the port's own
+     cached build deleted, the set built from nothing (4 entries, depths
+     0..3), its expected cost within 1e-12 of the JAX package's, then the
+     optimizer over it as phase 7 (PARALLEL_DRIVE: depths 2 and 3, whose
+     gates have all 8 nonzeros), and MixedOrderBasisTemplate's cost of the
+     100000 targets equal to the sum of their depths;
+ 11. depths: spanning_range [1, 2, 3] on sqiSwap, iSwap, CNOT and SWAP tiled
      to 1000 targets (cycles 1, 2, 2, 3), the CNOT basis at depth 3 on
-     haar_sample(10000, seed=2), depths 4 to 12 and 13, 16, 20, 24, 32, 48
-     on 500 Haar targets on the kernels (13..48: the depth-generic programs)
-     and depth 49 routed to the general solver by rule (no solve; the path
-     of every depth is printed), every run at exactly one launch of each
-     kernel per chunk, and the kernels against their plain versions at these
-     runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's K = 3 at 50000 /
-     10000, K = 4..48 at 2500 / 500) with phase 3's limits;
- 11. general solver on the card: the reduced and Makhlin objectives at depth
+     haar_sample(10000, seed=2), depths 4 to 12 and 13, 16, 20, 24, 32, 48,
+     64, 79 on 500 Haar targets on the kernels (13..79: the depth-generic
+     programs) and depth 80 routed to the general solver by rule (no solve;
+     the path of every depth is printed), every run at exactly one launch of
+     each kernel per chunk, and the kernels against their plain versions at
+     these runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's K = 3 at
+     50000 / 10000, K = 4..48 and 79 at 2500 / 500) with phase 3's limits;
+ 12. general solver on the card: the reduced and Makhlin objectives at depth
      3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
      restarts), a free conversion-gain gate under bounds reaching CNOT at
      depth 1 from 256 restarts, and the chain template forced through the
      general solver against the kernel path from the same starts, restart
      by restart;
- 12. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 11) and the whole run's seconds, then the device
+ 13. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 12) and the whole run's seconds, then the device
      line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
-n <= 78. From depth 13, the depth-generic programs, a lane counts within it
-where the kernel lies within 5e-5 of the plain version, or within the plain
+n <= 78. The depth-generic programs (depth 13 on) are held after
+ADAM_GENERIC_ITERS steps instead, and a lane counts within the limit where
+the kernel lies within 5e-5 of the plain version, or within the plain
 result's own shift under a one-ulp move of its start where that is larger:
-from n ~ 200 Adam amplifies f32 rounding past 5e-5 on some lanes, in the
-plain version as much as in the kernel (tools/inputs.adam_ulp_spread; the
-lane shares within 5e-5 alone are printed beside it, PERF.md section 6).
+on deep chains Adam's normalised step turns f32 rounding of a near-zero
+gradient component into a full step, in the plain version as much as in
+the kernel (tools/inputs.adam_ulp_spread; the lane shares within 5e-5 alone
+are printed beside it), and past ~25 steps at n >= 390 the spread itself
+no longer bounds what rounding does (tools/adam_steps.py, PERF.md section 6).
 
 Any failure exits non-zero before the result lines. There is no CPU path:
 without CUDA the script exits with status 1.
@@ -133,11 +148,17 @@ REPLACES = {
 SOURCES = {
     name: f"slam_decomposition_torch/csrc/{name}.cu" for name in REPLACES
 }
-# the depth-generic programs (K = 13..48), which the entry points above hand deep chains to
+# the depth-generic programs (K = 13..79), which the entry points above hand deep chains to
 GENERIC_SOURCES = {name: f"slam_decomposition_torch/csrc/{name}_generic.cu" for name in REPLACES}
 # stated tolerances (see each check for the reason; the readings they were
 # set from are in PERF.md)
 ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
+# the depth-generic programs' Adam lanes, within the one-ulp spread: after 5
+# steps 0.99920-1.00000 of lanes at every depth 13..79 read; after 25, 0.98720
+# at K = 79 (tools/adam_steps.py, PERF.md section 6). Their later steps are
+# held lane by lane over 25 steps against the K = 12 instance
+# (phase_generic_vs_instance)
+ADAM_GENERIC_ITERS = 5
 ADAM_COST_FRAC_TOL = 0.01
 ADAM_WITH_COST_ATOL = 1e-5  # the kernel's f32 cost against the plain f32 cost of its x
 # bytes of stack frame an instance may have: the scratch of sincosf's / sincos's
@@ -175,19 +196,37 @@ GENERAL_CLASS_B, GENERAL_CLASS_THRESH, GENERAL_CLASS_MIN = 10_000, 1e-9, 0.99
 GENERAL_LBFGS_B, GENERAL_LBFGS_MIN = 2000, 0.99
 GENERAL_V2_RESTARTS = 256
 GENERAL_CHAIN_B, GENERAL_VERDICT_FRAC = 2000, 0.99
-# depths 4 to 12 and six of 13..48 on 500 Haar targets, and depth 49, and the
-# path each takes by rule (the kernels cover depths 1..48: 1..12 as template
-# instances, 13..48 through the depth-generic programs); depth 49 is a
-# routing check only, no solve
-DEPTH_DEEP = (*((k, "kernels") for k in (*range(4, 13), 13, 16, 20, 24, 32, 48)), (49, "general"))
+# depths 4 to 12 and eight of 13..kMaxK on 500 Haar targets on the kernels
+# (1..12 as template instances, 13..kMaxK through the depth-generic
+# programs), the last the deepest chain whose blocks fit in shared memory
+# (csrc/chain_common.cuh kMaxK = ops/chain_kernels.KERNEL_KS[-1]); and
+# kMaxK + 1, a routing check only (no solve), on the general solver by rule
+DEEP_KS = (*range(4, 13), 13, 16, 20, 24, 32, 48, 64)
+
+
+def depth_deep():
+    """DEEP_KS and kMaxK on the kernels, then kMaxK + 1 on the general
+    solver: (depth, path by rule) each."""
+    from slam_decomposition_torch.ops.chain_kernels import KERNEL_KS
+
+    return (*((k, "kernels") for k in (*DEEP_KS, KERNEL_KS[-1])), (KERNEL_KS[-1] + 1, "general"))
+
+
+def depth_parity():
+    """The depths whose kernels are held to their plain versions at the
+    depth runs' lanes: all but 64 (of the deep ones, the last only: the
+    plain versions of a deep chain take tens of seconds; K = 64 is held by
+    tests/test_torch_kernels.py on the card)."""
+    return tuple(k for k, path in depth_deep() if path == "kernels" and k != 64)
 
 
 class Basis(NamedTuple):
-    """A fractional-iSwap basis phase: conversion_gain_gate(0, 0, 0, angle, 1)
-    templates over ``depths``; ``hist`` the monodromy depth histogram of
-    haar_sample(B, seed=SEED) (the port's monodromy_ks_batch on the CPU; the
-    JAX package gives the same depths, tests/test_torch_fractional.py and
-    tests/test_torch_eighth_iswap.py); ``success_min`` the success share's
+    """A conversion-gain basis phase: conversion_gain_gate(0, 0, g1, g2, 1)
+    templates over ``depths`` for ``drives`` (g1, g2); ``hist`` the
+    monodromy depth histogram of haar_sample(B, seed=SEED) (the port's
+    monodromy_ks_batch on the CPU; the JAX package gives the same depths,
+    tests/test_torch_fractional.py, tests/test_torch_eighth_iswap.py and
+    tests/test_torch_coverage.py); ``success_min`` the success share's
     limit (readings in PERF.md); ``chains`` (k, targets, least depth): the
     depth-k chain through both solver paths on the first ``targets`` targets
     whose monodromy depth lies in [least depth, k]; ``parity_ks`` the depths
@@ -196,7 +235,7 @@ class Basis(NamedTuple):
 
     tag: str
     name: str
-    angle: float
+    drives: tuple
     depths: tuple
     hist: dict
     success_min: float
@@ -204,17 +243,26 @@ class Basis(NamedTuple):
     parity_ks: tuple
 
 
-QUARTER_ISWAP = Basis("frac", "quarter-iSwap", math.pi / 8, (2, 3, 4, 5, 6),
+QUARTER_ISWAP = Basis("frac", "quarter-iSwap", (0.0, math.pi / 8), (2, 3, 4, 5, 6),
                       {2: 756, 3: 18734, 4: 76556, 5: 3937, 6: 17}, 0.9999, ((5, 1000, 5),), (5, 6))
-EIGHTH_ISWAP = Basis("eighth", "eighth-iSwap", math.pi / 16, tuple(range(2, 13)),
+EIGHTH_ISWAP = Basis("eighth", "eighth-iSwap", (0.0, math.pi / 16), tuple(range(2, 13)),
                      {2: 3, 3: 88, 4: 865, 5: 4460, 6: 14074, 7: 30125, 8: 46431, 9: 3554, 10: 383, 11: 17},
                      0.9999, ((8, 1000, 8), (10, 500, 9)), tuple(range(7, 13)))
 # depths 4..22 (the JAX package's too, tests/test_torch_sixteenth_iswap.py);
 # parity at the first generic depth, the busiest, and two small late runs
-SIXTEENTH_ISWAP = Basis("sixteenth", "sixteenth-iSwap", math.pi / 32, tuple(range(2, 25)),
+SIXTEENTH_ISWAP = Basis("sixteenth", "sixteenth-iSwap", (0.0, math.pi / 32), tuple(range(2, 25)),
                         {4: 4, 5: 23, 6: 64, 7: 252, 8: 613, 9: 1540, 10: 2920, 11: 5354, 12: 8720, 13: 12870,
                          14: 17255, 15: 21618, 16: 24813, 17: 2555, 18: 999, 19: 314, 20: 69, 21: 15, 22: 2},
                         0.9999, ((13, 1000, 13), (16, 500, 15)), (13, 16, 19, 22))
+# both drives on: no cached coverage set exists, so phase_coverage builds it
+# first (4 entries: the identity and depths 1..3); its depths and expected
+# cost are the JAX package's (tests/test_torch_coverage.py)
+PARALLEL_DRIVE = Basis("parallel", "parallel-drive", (math.pi / 8, math.pi / 4), (2, 3), {2: 95897, 3: 4103},
+                       0.9999, ((3, 1000, 3),), (2, 3))
+PARALLEL_EXPECTED_COST, EXPECTED_COST_ATOL = 2.041729136984176, 1e-12
+# the sets phase_coverage builds without their caches and holds to them
+# (quarter- and eighth-iSwap: the bases of phases 7 and 8)
+COVERAGE_BUILDS = (("sqiswap", None), ("quarter-iSwap", (0.0, math.pi / 8)), ("eighth-iSwap", (0.0, math.pi / 16)))
 # the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
 RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
 
@@ -276,7 +324,7 @@ def phase_build():
     want = 4 * len(INSTANCE_KS) + 4
     check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
-    generic_ks = (12, *(k for k, path in DEPTH_DEEP if path == "kernels" and k > max(INSTANCE_KS)))
+    generic_ks = (12, *(k for k, path in depth_deep() if path == "kernels" and k > max(INSTANCE_KS)))
     for name in REPLACES:
         for generic, ks in ((False, INSTANCE_KS), (True, generic_ks)):
             for k in ks:
@@ -330,15 +378,17 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
         # (0.08-0.1% of lanes beyond 5e-5 after 25 steps on the H100 at
         # n <= 78, more on deeper chains), so lanes are compared after 25
         # steps with a lane fraction, and the 100-step results by their cost
-        # distribution. From depth 13 a lane's bound is the larger of 5e-5
-        # and the plain result's own shift under a one-ulp move of its start.
-        s25 = sched[:ADAM_PARITY_ITERS].contiguous()
-        ref25 = ck.adam_chain_ref(x0, lanes_t, g32, s25)
-        d = (ck.adam_chain(x0, lanes_t, g32, s25) - ref25).abs().amax(1)
+        # distribution. The depth-generic programs are compared after
+        # ADAM_GENERIC_ITERS steps, a lane's bound the larger of 5e-5 and the
+        # plain result's own shift under a one-ulp move of its start.
+        steps = ADAM_GENERIC_ITERS if generic else ADAM_PARITY_ITERS
+        s_lane = sched[:steps].contiguous()
+        ref_lane = ck.adam_chain_ref(x0, lanes_t, g32, s_lane)
+        d = (ck.adam_chain(x0, lanes_t, g32, s_lane) - ref_lane).abs().amax(1)
         frac = frac_atol = (d <= ADAM_ATOL).float().mean().item()
         spread = ""
         if generic:
-            bound = adam_ulp_spread(x0, lanes_t, g32, s25, ref25).clamp_min(ADAM_ATOL)
+            bound = adam_ulp_spread(x0, lanes_t, g32, s_lane, ref_lane).clamp_min(ADAM_ATOL)
             frac = (d <= bound).float().mean().item()
             spread = (f", within the plain result's one-ulp spread where larger {frac:.5f} (spread beyond "
                       f"{ADAM_ATOL:g} on {(bound > ADAM_ATOL).float().mean().item():.5f} of lanes)")
@@ -347,7 +397,7 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
         ca = ck.square_cost(xa, lanes_t, g32)
         ca_ref = ck.square_cost(xa_ref, lanes_t, g32)
         dfrac = abs((ca < 1e-2).float().mean().item() - (ca_ref < 1e-2).float().mean().item())
-        print(f"[parity] adam_chain {label} L={x0.shape[0]}: {ADAM_PARITY_ITERS} steps max|dx| {d.max().item():.3e}, "
+        print(f"[parity] adam_chain {label} L={x0.shape[0]}: {steps} steps max|dx| {d.max().item():.3e}, "
               f"{frac_atol:.5f} of lanes within {ADAM_ATOL:g}{spread} (need >= {ADAM_LANE_FRAC}); 100 steps "
               f"|d frac(cost<1e-2)| {dfrac:.4f} (need <= {ADAM_COST_FRAC_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         check(frac >= ADAM_LANE_FRAC and dfrac <= ADAM_COST_FRAC_TOL, f"adam_chain {label} disagrees with its plain version")
@@ -732,7 +782,7 @@ def check_counts(what, launches, general, want_launches, want_general):
 
 def phase_api(card, counted, stats):
     """The README's first quick-start on the card at full width."""
-    from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+    from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.opt.optimizer import CHUNK as API_CHUNK, TemplateOptimizer
     from slam_decomposition_torch.opt.samplers import haar_sample
@@ -745,7 +795,7 @@ def phase_api(card, counted, stats):
     opt = TemplateOptimizer(basis, objective="square", spanning_range=[2, 3], override_fail=True)
     check(opt.training_restarts == API_RESTARTS, f"default restarts {opt.training_restarts} != {API_RESTARTS}")
     res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
-    ks = np.maximum(monodromy_ks_batch(load_coverage(gates.cg_sqiswap()), U, torch.device("cuda")), 2)
+    ks = np.maximum(monodromy_ks_batch(gate_set_to_coverage(gates.cg_sqiswap()), U, torch.device("cuda")), 2)
     share = float(res.success.mean())
     certified = certified_share(basis, res, U, torch.device("cuda"))
     late = int(((res.cycles == 3) & (ks == 2)).sum())  # depth-2 targets whose restarts all missed at depth 2
@@ -774,11 +824,12 @@ def phase_api(card, counted, stats):
 
 
 def phase_basis(card, counted, stats, basis_spec):
-    """A fractional-iSwap basis at full width: its monodromy depths, then the
+    """A conversion-gain basis at full width: its monodromy depths, then the
     optimizer with each target's own range (its depth to the deepest), every
     depth on the kernels; then chains through both solver paths and the
-    kernels against their plain versions at the lanes the run launched."""
-    from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+    kernels against their plain versions at the lanes the run launched.
+    Returns the targets and their monodromy depths."""
+    from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
     from slam_decomposition_torch.models import gates
     from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
     from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver
@@ -788,9 +839,9 @@ def phase_basis(card, counted, stats, basis_spec):
 
     dev = torch.device("cuda")
     tag, name, depths, hist = f"[{basis_spec.tag}]", basis_spec.name, basis_spec.depths, basis_spec.hist
-    q = gates.conversion_gain_gate(0, 0, 0, basis_spec.angle, 1.0)
+    q = gates.conversion_gain_gate(0, 0, *basis_spec.drives, 1.0)
     basis = lambda k: build_ansatz(cycle_gates([q], k))  # noqa: E731
-    cov = load_coverage(q)
+    cov = gate_set_to_coverage(q, device=dev)
     U = haar_sample(B, seed=SEED)
     ks = monodromy_ks_batch(cov, U, dev)
     ks_cpu = monodromy_ks_batch(cov, U, torch.device("cpu"))
@@ -829,7 +880,7 @@ def phase_basis(card, counted, stats, basis_spec):
     check((res.cycles[res.success] >= lo[res.success]).all(), "a target is solved below its monodromy depth")
     check(share >= basis_spec.success_min and certified == share, f"success share {share}, confirmed {certified}")
     # chains through both paths from the same starts, restart by restart (as
-    # phase 10 (d) holds the sqiSwap chain)
+    # phase 12 (d) holds the sqiSwap chain)
     for k, n_targets, least in basis_spec.chains:
         a = basis(k)
         T = torch.as_tensor(U[(ks >= least) & (ks <= k)][:n_targets]).to(dev)
@@ -861,6 +912,85 @@ def phase_basis(card, counted, stats, basis_spec):
         if active[k]:
             phase_parity(stats, ks=(k,), targets=min(active[k], API_CHUNK), restarts=API_RESTARTS,
                          tag=f"_{basis_spec.tag}", gate=q)
+    return U, ks
+
+
+def same_coverage(built, cached):
+    """Whether two coverage sets are equal row for row: the operations, the
+    cost, and every convex subpolytope's name and exact Fraction rows, in
+    order."""
+    return len(built) == len(cached) and all(
+        a.operations == b.operations and a.cost == b.cost
+        and [(c.name, c.inequalities, c.equalities) for c in a.polytope.convex_subpolytopes]
+        == [(c.name, c.inequalities, c.equalities) for c in b.polytope.convex_subpolytopes]
+        for a, b in zip(built, cached)
+    )
+
+
+def phase_coverage(card, counted, stats):
+    """The coverage engine on the card's host, coordinates on the card:
+    (a) the sqiSwap, quarter- and eighth-iSwap sets built without their
+    caches, each equal row for row to the JAX package's cached pickle, and
+    the main path's depths over the built sqiSwap set; (b) the
+    parallel-drive basis, which has no cache: its set built from nothing,
+    its expected cost, then phase_basis over it, and the coverage-backed
+    template's cost of the 100000 targets."""
+    from slam_decomposition_torch.config import coverage_cache_dir, data_dir
+    from slam_decomposition_torch.convert import coverage_from_jax_pickle
+    from slam_decomposition_torch.coverage import coverage as cov
+    from slam_decomposition_torch.coverage.haar import expected_cost
+    from slam_decomposition_torch.coverage.mixed import MixedOrderBasisTemplate
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.opt.samplers import haar_sample
+
+    dev = torch.device("cuda")
+    t_phase, build_s = time.perf_counter(), 0.0
+    U = haar_sample(B, seed=SEED)
+    for name, drives in COVERAGE_BUILDS:
+        g = gates.cg_sqiswap() if drives is None else gates.conversion_gain_gate(0, 0, *drives, 1.0)
+        t0 = time.perf_counter()
+        built = cov.gate_set_to_coverage(g, use_cache=False, device=dev)
+        seconds = time.perf_counter() - t0
+        build_s += seconds
+        # the JAX package's own pickle, not the port's build cache, which
+        # the build above has just written
+        check(cov.coverage_path(g).exists(), f"no cached {name} set in the JAX package's data")
+        same = same_coverage(built, coverage_from_jax_pickle(cov.coverage_path(g)))
+        print(f"[coverage] {card}: {name} {g}: built {len(built)} entries in {seconds:.3f} s "
+              f"({sum(len(c.polytope.convex_subpolytopes) for c in built)} convex subpolytopes), equal row for row "
+              f"to the JAX package's cached set: {same}")
+        check(same, f"the {name} set built here differs from the cached one")
+        if drives is None:
+            ks = np.maximum(cov.monodromy_ks_batch(built, U, dev), 2)
+            print(f"[coverage] depths of haar {B} (seed {SEED}) over the built sqiswap set on the card: {_hist(ks)}")
+            check(_hist(ks) == WANT_HIST, f"depths over the built sqiswap set {_hist(ks)} != {WANT_HIST}")
+    # (b) the parallel-drive basis, built from nothing
+    q = gates.conversion_gain_gate(0, 0, *PARALLEL_DRIVE.drives, 1.0)
+    name = cov._cache_name([str(q)], False)
+    check(not (data_dir() / name).exists(), f"{q} has a cached set in the JAX package's data")
+    (coverage_cache_dir() / name).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    built = cov.gate_set_to_coverage(q, device=dev)
+    seconds = time.perf_counter() - t0
+    build_s += seconds
+    t0 = time.perf_counter()
+    cost = expected_cost(built)
+    cost_s = time.perf_counter() - t0
+    depths = [len(c.operations) for c in built]
+    print(f"[coverage] {card}: parallel-drive {q}: built {len(built)} entries (depths {depths}) in {seconds:.3f} s, "
+          f"written to the port's cache: {(coverage_cache_dir() / name).exists()}; expected cost {cost!r} (JAX package "
+          f"{PARALLEL_EXPECTED_COST!r}, need within {EXPECTED_COST_ATOL:g}) in {cost_s:.3f} s")
+    check(depths == [0, 1, 2, 3] and (coverage_cache_dir() / name).exists(), f"parallel-drive set depths {depths}")
+    check(abs(cost - PARALLEL_EXPECTED_COST) <= EXPECTED_COST_ATOL, f"expected cost {cost!r}")
+    U, ks = phase_basis(card, counted, stats, PARALLEL_DRIVE)
+    t0 = time.perf_counter()
+    total = MixedOrderBasisTemplate([q], device=dev).cost_from_distribution(U)
+    print(f"[coverage] {card}: MixedOrderBasisTemplate cost of haar {B}: {total} (sum of depths {int(ks.sum())}) "
+          f"in {time.perf_counter() - t0:.3f} s")
+    check(total == float(ks.sum()), f"template cost {total} != {int(ks.sum())}")
+    wall = time.perf_counter() - t_phase
+    print(f"[coverage] {card}: phase {wall:.1f} s, of which the four builds {build_s:.1f} s on the host "
+          f"({build_s / wall:.1%})")
 
 
 def phase_depth(card, counted, stats):
@@ -901,15 +1031,16 @@ def phase_depth(card, counted, stats):
           f"launches {launches}, {wall:.3f} s")
     check(share >= DEPTH_CNOT_MIN, "cnot basis at depth 3")
     check_counts("cnot basis at depth 3", launches, general, math.ceil(DEPTH_CNOT_B / API_CHUNK), 0)
-    # (c) depths 4 to 48 on the kernels, and 49 routed by rule
+    # (c) depths 4 to kMaxK on the kernels, and kMaxK + 1 routed by rule
     U = haar_sample(DEPTH_DEEP_B, seed=7)
-    for k, want in DEPTH_DEEP:
-        if want == "general":  # a routing check: the kernels cover depths 1..48
+    for k, want in depth_deep():
+        if want == "general":  # a routing check: the kernels cover depths 1..kMaxK
             opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
             path = opt._solver_for(k, basis(k))[1]
             print(f"[depth] sqiswap k={k}: path {path} (by rule: the kernels cover k in {KERNEL_KS[0]}..{KERNEL_KS[-1]}, "
                   f"n = {6 * (k + 1)} parameters; no solve)")
-            check(path == want and not takes_kernels(basis(k).chain_gates), f"depth {k}: path {path}")
+            check(path == want and not takes_kernels(basis(k).chain_gates),
+                  f"depth {k}: path {path}, kernels to depth {KERNEL_KS[-1]}")
             continue
         opt = TemplateOptimizer(basis, spanning_range=[k], override_fail=True)
         res, wall, launches, general, peak = counted(lambda: opt.approximate_from_distribution(U))
@@ -923,8 +1054,7 @@ def phase_depth(card, counted, stats):
     # (c) launch them with, outside the counted runs
     phase_parity(stats, ks=(1,), targets=4 * DEPTH_TILE, restarts=API_RESTARTS)
     phase_parity(stats, ks=(3,), targets=DEPTH_CNOT_B, restarts=API_RESTARTS, tag="_cnot", gate=gates.CNOT)
-    phase_parity(stats, ks=tuple(k for k, path in DEPTH_DEEP if path == "kernels"), targets=DEPTH_DEEP_B,
-                 restarts=API_RESTARTS)
+    phase_parity(stats, ks=depth_parity(), targets=DEPTH_DEEP_B, restarts=API_RESTARTS)
 
 
 def phase_general(card, counted):
@@ -1035,9 +1165,11 @@ def main() -> int:
         phase_basis(card, counted, stats, QUARTER_ISWAP)
         phase_basis(card, counted, stats, EIGHTH_ISWAP)
         phase_basis(card, counted, stats, SIXTEENTH_ISWAP)
+        phase_coverage(card, counted, stats)
         phase_depth(card, counted, stats)
         phase_general(card, counted)
-        print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, depth and general-solver runs: "
+        print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth and "
+              f"general-solver runs: "
               f"{counted.total}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:

@@ -3,8 +3,9 @@ entry points run on, and the optimizer's defaults.
 
 The cached coverage sets are the JAX package's own files under
 ``slam_decomposition_tpu/data/``. They are read from disk in place (never
-copied, never imported as a module: importing that package pulls in jax).
-``SLAM_DATA_DIR`` overrides the location, as it does for the JAX package.
+copied, never imported as a module: importing that package pulls in jax,
+and never written). ``SLAM_DATA_DIR`` overrides the location, as it does
+for the JAX package. The sets the port builds itself go under ``build/``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,19 @@ def data_dir() -> pathlib.Path:
 def build_dir() -> pathlib.Path:
     """Where the CUDA kernels are compiled to (listed in .gitignore)."""
     return REPO_ROOT / "build" / "slam_torch_kernels"
+
+
+def polytope_build_dir() -> pathlib.Path:
+    """Where the exact-rational polytope core (csrc/polytope_core.cpp) is
+    compiled to (listed in .gitignore)."""
+    return REPO_ROOT / "build" / "slam_polytope"
+
+
+def coverage_cache_dir() -> pathlib.Path:
+    """Where the port writes the coverage sets it builds, under the JAX
+    package's file names (listed in .gitignore). ``data_dir()`` is only
+    read."""
+    return REPO_ROOT / "build" / "slam_coverage"
 
 
 def _env(name: str, default, cast):

@@ -17,11 +17,16 @@ import torch
 from slam_decomposition_torch.coverage import coverage as _coverage
 from slam_decomposition_torch.coverage import polytope as _polytope
 
-# JAX-package class -> port class; nothing else of that package may load
+# coverage class -> port class: the JAX package's (its cached sets) and the
+# port's own (the sets it builds); nothing else of either package may load
 _REMAP = {
-    ("slam_decomposition_tpu.coverage.coverage", "CircuitPolytope"): _coverage.CircuitPolytope,
-    ("slam_decomposition_tpu.coverage.polytope", "Polytope"): _polytope.Polytope,
-    ("slam_decomposition_tpu.coverage.polytope", "ConvexPolytope"): _polytope.ConvexPolytope,
+    (f"{package}.coverage.{module}", cls.__name__): cls
+    for package in ("slam_decomposition_tpu", "slam_decomposition_torch")
+    for module, cls in (
+        ("coverage", _coverage.CircuitPolytope),
+        ("polytope", _polytope.Polytope),
+        ("polytope", _polytope.ConvexPolytope),
+    )
 }
 _ALLOWED_MODULES = {"fractions", "builtins", "copyreg"}
 
@@ -42,7 +47,7 @@ class _CoverageUnpickler(pickle.Unpickler):
 
 def coverage_from_jax_pickle(path) -> list:
     """The coverage list (identity first, then layers by cost) from a
-    ``polytope_coverage_*.pkl`` written by the JAX package."""
+    ``polytope_coverage_*.pkl`` written by the JAX package or by the port."""
     with open(path, "rb") as f:
         return _CoverageUnpickler(f).load()
 

@@ -40,7 +40,7 @@ SLAM_ADAM_DEPTH(extern, 10)
 SLAM_ADAM_DEPTH(extern, 11)
 SLAM_ADAM_DEPTH(extern, 12)
 
-// K = 13..48: the depth-generic program (adam_chain_generic.cu)
+// K = 13..79: the depth-generic program (adam_chain_generic.cu)
 extern "C" cudaError_t slam_adam_chain_generic(const void* x0, const void* tgt, const void* gates,
                                                const void* sched, int iters, int k, int L, void* xout,
                                                void* fout, void* stream);
@@ -48,8 +48,8 @@ extern "C" cudaError_t slam_adam_chain_generic(const void* x0, const void* tgt, 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64,
 // sched (iters, 3) f32 -> xout (L, 6(k+1)) f32 and, unless fout is null,
 // fout (L,) f32, the square cost at xout. Launches on `stream` and returns
-// the launch's error code; k must be 1, ..., 48 (1..12 run their instance,
-// 13..48 the depth-generic program).
+// the launch's error code; k must be 1, ..., 79 (1..12 run their instance,
+// 13..79 the depth-generic program).
 extern "C" cudaError_t slam_adam_chain(const void* x0, const void* tgt, const void* gates,
                                        const void* sched, int iters, int k, int L,
                                        void* xout, void* fout, void* stream) {

@@ -2,8 +2,8 @@
 // chain depth K: one program in which K is a runtime argument.
 //
 // Replaces: slam_decomposition_tpu/ops/pallas_chain.py:make_adam_chain
-// (kernel body :701-745) at the depths without an instance, K = 13..48
-// (n = 84..294 parameters); adam_chain.cu's entry point hands them here.
+// (kernel body :701-745) at the depths without an instance, K = 13..79
+// (n = 84..480 parameters); adam_chain.cu's entry point hands them here.
 //
 // Bound on this card: operations, as adam_chain.cu (one step is a forward
 // chain, the prefix products and a reverse sweep; ~3 chain evaluations,
@@ -12,12 +12,12 @@
 // Design (adam_generic.cuh): adam_team.cuh's 4-thread team per lane,
 // unchanged, with the layer loops rolled and the per-thread gradient and
 // Adam state g, m, v moved from registers (3 n / 4 floats a thread, 222 at
-// K = 48) into the lane's workspace. A block holds the gate lists and as
+// K = 48, 360 at K = 79) into the lane's workspace. A block holds the gate lists and as
 // many lane workspaces as fit in 227 KB of dynamic shared memory, at most
 // 32 (adam_chain.cuh's block) and in whole warps of 8 teams
 // (chain_common.cuh generic_lanes): 32 lanes (4.2 KB each at K = 13) to
-// K = 21, 24 to K = 29, 16 to K = 43 and 8 (14.1 KB each at K = 48) beyond,
-// one block (one to four warps) an SM. The instance with the final cost
+// K = 21, 24 to K = 29, 16 to K = 43 and 8 (14.1 KB each at K = 48, 22.8
+// KB at K = 79) beyond, one block (one to four warps) an SM. The instance with the final cost
 // (Cost) is kept as in adam_chain.cu.
 
 #include "adam_generic.cuh"
@@ -75,6 +75,7 @@ extern "C" cudaError_t slam_adam_chain_generic(const void* x0, const void* tgt, 
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
   const slam_adam_generic::Shape sh = slam_adam_generic::shape(k);
+  if (sh.smem > slam::kBlockSmemMax) return cudaErrorInvalidValue;
   auto* kernel = fout ? slam_adam_generic::adam_chain_generic_kernel<true>
                       : slam_adam_generic::adam_chain_generic_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);

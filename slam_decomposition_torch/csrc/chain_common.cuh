@@ -311,9 +311,14 @@ template <int S, class Th> struct HostTeam {
 
 // Chain depths with a kernel (ops/chain_kernels.py KERNEL_KS): 1..kInstMaxK
 // as one template instance each, kInstMaxK + 1..kMaxK through the
-// depth-generic programs, in which K is a runtime argument.
+// depth-generic programs, in which K is a runtime argument. kMaxK is the
+// deepest chain at which one block of each generic program (a warp of Adam
+// lanes, one LM or polish lane) fits in 227 KB of shared memory beside its
+// gate lists: at K = 80 the polish's one lane (124.7 KB) and its f32 and
+// f64 gate lists (105.0 KB) take 229.7 KB (generic_lanes, host_lanes.cpp
+// generic_shape, tests/test_torch_kernel_lanes.py).
 constexpr int kInstMaxK = 12;
-constexpr int kMaxK = 48;
+constexpr int kMaxK = 79;
 
 #if defined(__CUDACC__)
 // ------------------------------------------------------------ launch glue
@@ -373,7 +378,8 @@ template <int K = 1, class F> cudaError_t by_k(int k, F&& f) {
 // workspaces of lane_bytes as fit beside the gate lists in the 227 KB a
 // block may use, at most max_lanes (the instances' lanes a block), in whole
 // units of `unit` lanes (a warp's teams: a team's sums shuffle over the
-// full warp), and at least one unit.
+// full warp), and at least one unit (which fits for K <= kMaxK; the
+// launchers refuse a block over kBlockSmemMax).
 constexpr size_t kBlockSmemMax = 227 * 1024;
 
 SLAM_HD size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }

@@ -1,6 +1,6 @@
 // Host build of the three kernels' lane programs, with the same C interface
 // as the CUDA launchers minus the stream: the depth-K instances (K =
-// 1..12) and the depth-generic programs (any K to 48, K a runtime
+// 1..12) and the depth-generic programs (any K to 79, K a runtime
 // argument). The teams (Adam; the LM program with a float residual for the
 // ranking pass and a double one for the polish) run their steps as loops
 // over the team's threads (chain_common.cuh HostTeam), block by block as the
@@ -97,7 +97,7 @@ void polish_host(const double* x0, const double* tgt, const double* gates, int i
   SLAM_BY_K(k, CALL)
 #undef CALL
 }
-// the depth-generic programs at any k in 1..48
+// the depth-generic programs at any k in 1..79
 void adam_host_generic(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int k, int L, float* xout, float* fout) {
   if (fout) adam_gen<true>(x0, tgt, gates, sched, iters, k, L, xout, fout);
   else adam_gen<false>(x0, tgt, gates, sched, iters, k, L, xout, fout);

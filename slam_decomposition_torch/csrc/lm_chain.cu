@@ -42,13 +42,13 @@ SLAM_LM_DEPTH(extern, 10)
 SLAM_LM_DEPTH(extern, 11)
 SLAM_LM_DEPTH(extern, 12)
 
-// K = 13..48: the depth-generic program (lm_chain_generic.cu)
+// K = 13..79: the depth-generic program (lm_chain_generic.cu)
 extern "C" cudaError_t slam_lm_chain_generic(const void* x0, const void* tgt, const void* gates, int iters,
                                              int k, int L, void* xout, void* fout, void* stream);
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64
-// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, ..., 48 (1..12 run
-// their instance, 13..48 the depth-generic program).
+// -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, ..., 79 (1..12 run
+// their instance, 13..79 the depth-generic program).
 extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void* gates,
                                      int iters, int k, int L, void* xout, void* fout,
                                      void* stream) {

@@ -2,8 +2,8 @@
 // for any chain depth K: one program in which K is a runtime argument.
 //
 // Replaces: slam_decomposition_tpu/ops/pallas_chain.py:make_lm_chain
-// (body lm_block :201-268) at the depths without an instance, K = 13..48
-// (n = 84..294 parameters); lm_chain.cu's entry point hands them here.
+// (body lm_block :201-268) at the depths without an instance, K = 13..79
+// (n = 84..480 parameters); lm_chain.cu's entry point hands them here.
 //
 // Bound on this card: operations, as lm_chain.cu (J from prefix and suffix
 // products, b, n + 8 CG iterations of 2 * 32 n multiply-adds, the trial
@@ -14,8 +14,9 @@
 // CG's per-parameter vectors in the lane's workspace. A block holds the gate
 // lists and as many lane workspaces as fit in 227 KB of dynamic shared
 // memory, at most 4 (lm_chain.cuh's block; chain_common.cuh
-// generic_lanes): 4 lanes (18.8 KB each at K = 13) to K = 38, then 3 (64.8
-// KB each at K = 48); two blocks an SM at K = 13 and 16, one from K = 20.
+// generic_lanes): 4 lanes (18.8 KB each at K = 13) to K = 38, 3 (64.8 KB
+// each at K = 48) to K = 49, 2 to K = 71, then 1 (104.4 KB at K = 79); two
+// blocks an SM at K = 13 and 16, one from K = 20.
 
 #include "lm_generic.cuh"
 
@@ -65,6 +66,7 @@ extern "C" cudaError_t slam_lm_chain_generic(const void* x0, const void* tgt, co
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
   const slam_lm_generic::Shape sh = slam_lm_generic::shape(k);
+  if (sh.smem > slam::kBlockSmemMax) return cudaErrorInvalidValue;
   auto* kernel = slam_lm_generic::lm_chain_generic_kernel;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return err;

@@ -4,7 +4,7 @@
 //
 // Replaces: slam_decomposition_tpu/ops/pallas_chain.py:make_polish_chain
 // (body polish_block :417-563) at the depths without an instance,
-// K = 13..48 (n = 84..294 parameters); polish_chain.cu's entry point hands
+// K = 13..79 (n = 84..480 parameters); polish_chain.cu's entry point hands
 // them here. As there, the residual and trial step run in native f64 (the
 // TPU's double-single), J, b and CG in f32, and the kernel returns x with
 // its angles reduced mod 4 pi and the final accepted ||r||^2 in f64.
@@ -19,8 +19,9 @@
 // residual) and as many lane workspaces as fit in 227 KB of dynamic shared
 // memory, at most 4 (polish_chain.cuh's block; chain_common.cuh
 // generic_lanes): 4 lanes (22.7 KB each at K = 13) to K = 29, then 3 to
-// K = 37 and 2 (76.4 KB each at K = 48); two blocks an SM at K = 13, one
-// from K = 16.
+// K = 37, 2 (76.4 KB each at K = 48) to K = 50 and 1 (122.8 KB at K = 79,
+// beside 103.7 KB of gate lists: the deepest chain a block fits,
+// chain_common.cuh kMaxK); two blocks an SM at K = 13, one from K = 16.
 
 #include "lm_generic.cuh"
 
@@ -76,6 +77,7 @@ extern "C" cudaError_t slam_polish_chain_generic(const void* x0, const void* tgt
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
   const slam_polish_generic::Shape sh = slam_polish_generic::shape(k);
+  if (sh.smem > slam::kBlockSmemMax) return cudaErrorInvalidValue;
   auto* kernel = slam_polish_generic::polish_chain_generic_kernel;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return err;

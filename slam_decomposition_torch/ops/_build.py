@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 ]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> argtypes (the trailing c_void_p is the CUDA stream)
-# (the *_generic entries run the depth-generic program at any k in 1..48;
+# (the *_generic entries run the depth-generic program at any k in 1..79;
 # the others hand k >= 13 to it and run their instance at k <= 12)
 SIGNATURES = {
     "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],  # xout, fout (may be null)

@@ -29,11 +29,12 @@ import torch
 from slam_decomposition_torch.models.templates import chain_unitary
 
 # chain depths with a CUDA kernel (csrc/chain_common.cuh kMaxK): 1..12 as
-# one template instance each (INSTANCE_KS, kInstMaxK), 13..48 (n = 84..294)
+# one template instance each (INSTANCE_KS, kInstMaxK), 13..79 (n = 84..480)
 # through the depth-generic programs (csrc/*_generic.cu*, K a runtime
-# argument); depth 49 and deeper take the general solver
+# argument; 79 is the deepest chain whose blocks fit in shared memory);
+# depth 80 and deeper take the general solver
 INSTANCE_KS = tuple(range(1, 13))
-KERNEL_KS = tuple(range(1, 49))
+KERNEL_KS = tuple(range(1, 80))
 # the main path's schedule (JAX bench.py:88-91, pallas_chain.py:688-699)
 ADAM_ITERS, ADAM_LR, LM32_ITERS, LM_ITERS = 100, 0.1, 8, 6
 CG_EXTRA_ITERS = 8  # CG runs n + 8 iterations (JAX gauss_newton._spd_solve)

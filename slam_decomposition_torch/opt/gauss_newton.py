@@ -270,9 +270,9 @@ class ChainSolver:
 
 def takes_kernels(chain_gates, residual="phase", final_cost_fn=None, lower=None) -> bool:
     """The routing rule of ``make_solver``: a plain u3 chain (``chain_gates``
-    given) of a depth the kernels cover (``chain_kernels.KERNEL_KS``, 1..48:
-    n = 6(k+1) <= 294; 1..12 as template instances, 13..48 through the
-    depth-generic programs; depth 49 and deeper take the general path), the
+    given) of a depth the kernels cover (``chain_kernels.KERNEL_KS``, 1..79:
+    n = 6(k+1) <= 480; 1..12 as template instances, 13..79 through the
+    depth-generic programs; depth 80 and deeper take the general path), the
     phase residual, the square cost, no bounds."""
     return (
         chain_gates is not None
@@ -302,11 +302,11 @@ def make_solver(
 
     Routing, by rule and not by a failed launch (``takes_kernels``; JAX
     gauss_newton.py:278-284 routes the same templates to its Pallas
-    kernels): a plain chain of depth 1..48 with the phase residual, the
+    kernels): a plain chain of depth 1..79 with the phase residual, the
     square cost and no bounds takes the kernel path (``ChainSolver``: the
     three CUDA kernels on CUDA tensors, their plain versions on CPU
-    tensors). Everything else, a chain of depth 49 or more included (the
-    kernels cover depths 1..48), takes the general path (``GeneralSolver``),
+    tensors). Everything else, a chain of depth 80 or more included (the
+    kernels cover depths 1..79), takes the general path (``GeneralSolver``),
     the same algorithm in plain PyTorch."""
     iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr)
     if takes_kernels(chain_gates, residual, final_cost_fn, lower):

@@ -11,7 +11,7 @@ Which solver runs (``TemplateOptimizer._solver_for``):
 
 * ``method="auto"`` with the square or basic objective rides the phase
   residual, the reduced / Weyl / Makhlin objectives the Makhlin residual,
-  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..48
+  both through ``gauss_newton.make_solver``: a plain u3 chain of depth 1..79
   under the square objective takes the three CUDA kernels, everything else
   the general solver in plain PyTorch;
 * ``method="gauss_newton"`` takes the phase residual for an objective
@@ -328,8 +328,8 @@ class TemplateOptimizer:
 
     def cost_from_distribution(self, targets, mixed_template=None):
         """Total polytope cost over a distribution without fitting 1Q
-        parameters. Needs a coverage-backed template (the JAX package's
-        coverage.mixed.MixedOrderBasisTemplate, which is not ported yet)."""
+        parameters (JAX optimizer.py:442-451). Needs a coverage-backed
+        template (``coverage.mixed.MixedOrderBasisTemplate``)."""
         if mixed_template is None:
             raise ValueError(
                 "pass a MixedOrderBasisTemplate: this cost needs a coverage-backed template"

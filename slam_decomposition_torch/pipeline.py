@@ -1,7 +1,9 @@
 """The Haar-decomposition main path (JAX bench.py:156-214), end to end.
 
 ``decompose_haar`` draws B Haar targets, assigns each its sqiSwap
-application count k from the cached coverage set (then max(k, 2)), solves
+application count k from the sqiSwap coverage set
+(``coverage.gate_set_to_coverage``: a cache read, a build where no cache
+holds it) (then max(k, 2)), solves
 each k-bucket in fixed-size chunks of ``chunk`` targets x ``restarts``
 restarts, and re-solves the targets still above ``thresh`` at k=3 in up to
 three rescue rounds. The last chunk of a bucket is filled by cycling the
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
-from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.opt.gauss_newton import ChainSolver
@@ -93,7 +95,7 @@ def decompose_haar(
     once on a disjoint target set. Runs on the card unless ``device`` names
     another."""
     device = resolve_device(device)
-    coverage = load_coverage(gates.cg_sqiswap())
+    coverage = gate_set_to_coverage(gates.cg_sqiswap(), device=device)
     solvers = {
         k: ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)
         for k in KS

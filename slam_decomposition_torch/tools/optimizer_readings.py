@@ -2,7 +2,7 @@
 not take on every run, and the comparisons both share.
 
     python -m slam_decomposition_torch.tools.optimizer_readings [--seeds 1 2] [--lbfgs-targets 200]
-        [--readings api depth chain frac eighth sixteenth]
+        [--readings api depth chain frac eighth sixteenth parallel]
 
 Per seed of the random starts (chip_smoke.py runs seed 0 of the first two and
 seed 9 of the third; its limits were set from these readings beside its own):
@@ -26,10 +26,14 @@ seed 9 of the third; its limits were set from these readings beside its own):
   1000 depth-8 targets and the depth-10 chain on 500 targets of depth 9 or
   10 through both paths;
 * the sixteenth-iSwap phase: the same on conversion_gain_gate(0, 0, 0,
-  pi/32, 1) templates over each target's range to 24 (depths 13..48 run
-  the depth-generic kernels), then the depth-13 chain on 1000 depth-13
+  pi/32, 1) templates over each target's range to 24 (depths 13 and more
+  run the depth-generic kernels), then the depth-13 chain on 1000 depth-13
   targets and the depth-16 chain on 500 targets of depth 15 or 16 through
-  both paths.
+  both paths;
+* the parallel-drive phase: the same on conversion_gain_gate(0, 0, pi/8,
+  pi/4, 1) templates (both drives on; no cached coverage set, so the
+  port builds it) over each target's range to 3, then the depth-3 chain on
+  1000 depth-3 targets through both paths.
 
 Then the launch count of one L-BFGS solve: the CNOT basis at depth 3 on
 haar_sample(N, seed=2) x 5 restarts under torch.profiler (after one warm
@@ -50,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops.weyl import c1c2c3
@@ -61,12 +65,14 @@ from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_bat
 B, SEED = 100_000, 456
 DEPTH_TILE, LEAST_DEPTHS = 250, (1, 2, 2, 3)
 CHAIN_B, RESTARTS = 2000, 5
-# fractional iSwap bases: g2, the depths of their templates, and the chains
-# (depth, targets, least monodromy depth) taken through both solver paths
-FRACTIONAL = {
-    "frac": (math.pi / 8, (2, 3, 4, 5, 6), ((5, 1000, 5),)),
-    "eighth": (math.pi / 16, tuple(range(2, 13)), ((8, 1000, 8), (10, 500, 9))),
-    "sixteenth": (math.pi / 32, tuple(range(2, 25)), ((13, 1000, 13), (16, 500, 15))),
+# conversion-gain bases: (g1, g2), the depths of their templates, and the
+# chains (depth, targets, least monodromy depth) taken through both solver
+# paths
+BASES = {
+    "frac": ((0.0, math.pi / 8), (2, 3, 4, 5, 6), ((5, 1000, 5),)),
+    "eighth": ((0.0, math.pi / 16), tuple(range(2, 13)), ((8, 1000, 8), (10, 500, 9))),
+    "sixteenth": ((0.0, math.pi / 32), tuple(range(2, 25)), ((13, 1000, 13), (16, 500, 15))),
+    "parallel": ((math.pi / 8, math.pi / 4), (2, 3), ((3, 1000, 3),)),
 }
 # A restart counts as converged where its f32 score, as a square cost, is at
 # or under this: converged restarts sit at the f32 floor (1e-7 to 1e-5), the
@@ -136,7 +142,7 @@ def api_reading(seed: int) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     vals, cnt = np.unique(res.cycles, return_counts=True)
-    ks = np.maximum(monodromy_ks_batch(load_coverage(gates.cg_sqiswap()), U, dev), 2)
+    ks = np.maximum(monodromy_ks_batch(gate_set_to_coverage(gates.cg_sqiswap(), device=dev), U, dev), 2)
     early = np.where((res.cycles == 2) & (ks == 3) & res.success)[0]
     print(f"[api] seed={seed}: success {int(res.success.sum())}/{B}, cycles {dict(zip(vals.tolist(), cnt.tolist()))}, "
           f"{len(early)} depth-3 targets solved at depth 2, at most {depth2_excess(U[early], dev).max(initial=0.0):.3e} "
@@ -175,12 +181,12 @@ def chain_reading(seed: int) -> None:
               + " / ".join(f"{same_parameters(xk, xg, t):.5f}" for t in (1e-3, 1e-6, 1e-9, 0.0)))
 
 
-def fractional_reading(seed: int, name: str) -> None:
-    angle, depths, chains = FRACTIONAL[name]
+def basis_reading(seed: int, name: str) -> None:
+    (g1, g2), depths, chains = BASES[name]
     dev = torch.device("cuda")
-    q = gates.conversion_gain_gate(0, 0, 0, angle, 1.0)
+    q = gates.conversion_gain_gate(0, 0, g1, g2, 1.0)
     U = haar_sample(B, seed=SEED)
-    ks = monodromy_ks_batch(load_coverage(q), U, dev)
+    ks = monodromy_ks_batch(gate_set_to_coverage(q, device=dev), U, dev)
     ranges = [list(range(max(int(k), min(depths)), max(depths) + 1)) for k in ks]
     opt = TemplateOptimizer(_basis(q), objective="square", spanning_range=list(depths), override_fail=True, seed=seed)
     t0 = time.perf_counter()
@@ -209,7 +215,7 @@ READINGS = {
     "api": api_reading,
     "depth": depth_reading,
     "chain": chain_reading,
-    **{name: functools.partial(fractional_reading, name=name) for name in FRACTIONAL},
+    **{name: functools.partial(basis_reading, name=name) for name in BASES},
 }
 
 

@@ -8,7 +8,17 @@ import pytest
 import torch
 
 from slam_decomposition_torch.config import resolve_device
-from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch
+from slam_decomposition_torch.coverage.coverage import (
+    circuit_to_polytope,
+    gate_set_to_coverage,
+    load_coverage,
+    monodromy_ks_batch,
+    monodromy_ranges_batch,
+    monodromy_reps_float,
+    weyl_coords_float,
+)
+from slam_decomposition_torch.coverage.haar import haar_monodromy_samples
+from slam_decomposition_torch.coverage.mixed import MixedOrderBasisTemplate
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops.kak_batch import make_analytic_init
@@ -40,6 +50,13 @@ ENTRY_POINTS = {
     "block_coordinate_counts": lambda: block_coordinate_counts(library.qft(3)),
     "sqiswap_count_batch(numpy)": lambda: sqiswap_count_batch(U),
     "monodromy_ks_batch(numpy)": lambda: monodromy_ks_batch(load_coverage(gates.cg_sqiswap()), U),
+    "monodromy_ranges_batch(numpy)": lambda: monodromy_ranges_batch(load_coverage(gates.cg_sqiswap()), U),
+    "monodromy_reps_float(numpy)": lambda: monodromy_reps_float(U),
+    "weyl_coords_float(numpy)": lambda: weyl_coords_float(U),
+    "gate_set_to_coverage(a build)": lambda: gate_set_to_coverage(gates.CNOT, use_cache=False),
+    "circuit_to_polytope": lambda: circuit_to_polytope([gates.CNOT]),
+    "haar_monodromy_samples": lambda: haar_monodromy_samples(8, seed=0),
+    "MixedOrderBasisTemplate.cost_from_distribution": lambda: MixedOrderBasisTemplate([gates.cg_sqiswap()]).cost_from_distribution(U),
 }
 
 

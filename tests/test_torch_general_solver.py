@@ -124,16 +124,16 @@ def test_solve_with_history_shapes_and_lm_trace():
 
 
 def test_routing_by_rule():
-    cg = {k: build_ansatz(cycle_gates([gates.SQISWAP], k)) for k in range(1, 50)}
-    for k in range(1, 49):
+    cg = {k: build_ansatz(cycle_gates([gates.SQISWAP], k)) for k in range(1, 81)}
+    for k in range(1, 80):
         assert takes_kernels(cg[k].chain_gates)
         s = make_solver(cg[k].eval_fn, cg[k].n_params, chain_gates=cg[k].chain_gates, device="cpu")
         assert isinstance(s, ChainSolver) and s.path == "kernels" and s.k == k
-    assert ck.KERNEL_KS == tuple(range(1, 49)) and ck.INSTANCE_KS == tuple(range(1, 13))
-    # the kernels cover depths 1..48 (13..48 through the depth-generic
-    # programs): depth 49 takes the general path, by rule
-    assert not takes_kernels(cg[49].chain_gates)
-    assert isinstance(make_solver(cg[49].eval_fn, 300, chain_gates=cg[49].chain_gates, device="cpu"), GeneralSolver)
+    assert ck.KERNEL_KS == tuple(range(1, 80)) and ck.INSTANCE_KS == tuple(range(1, 13))
+    # the kernels cover depths 1..79 (13..79 through the depth-generic
+    # programs): depth 80 takes the general path, by rule
+    assert not takes_kernels(cg[80].chain_gates)
+    assert isinstance(make_solver(cg[80].eval_fn, 486, chain_gates=cg[80].chain_gates, device="cpu"), GeneralSolver)
     a = cg[2]
     for kw in (dict(residual="makhlin"), dict(final_cost_fn=costs.basic_cost), dict(lower=a.lower, upper=a.upper)):
         assert not takes_kernels(a.chain_gates, **{k: v for k, v in kw.items() if k != "upper"})
@@ -146,16 +146,21 @@ def test_routing_by_rule():
     assert isinstance(make_solver(a.eval_fn, a.n_params, device="cpu"), GeneralSolver)
 
 
-@pytest.mark.parametrize("k", [1, 4, 5, 7, 13, 49])
+@pytest.mark.parametrize("k", [1, 4, 5, 7, 13, 80])
 def test_every_depth_solves(k):
     """Depths 1, 4, 5, 7 and 13 (the first depth of the depth-generic
-    kernels) take the kernel path (their plain versions here), depth 49 the
-    general path; all certify targets of their class."""
+    kernels) take the kernel path (their plain versions here) and certify
+    targets of their class; depth 80, one past the kernels' last, takes the
+    general path (a routing check: a solve at n = 486 is not run here)."""
     a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    if k == 80:
+        solver = make_solver(a.eval_fn, a.n_params, chain_gates=a.chain_gates, device="cpu")
+        assert solver.path == "general" and isinstance(solver, GeneralSolver)
+        return
     T = a.eval_fn(torch.as_tensor(np.random.default_rng(k).uniform(0, 2 * np.pi, (4, a.n_params)))) if k == 1 else torch.as_tensor(haar_sample(4, seed=k))
     x0 = torch.as_tensor(np.random.default_rng(10 + k).uniform(0, 2 * np.pi, (4, 4, a.n_params)))
     solver = make_solver(a.eval_fn, a.n_params, chain_gates=a.chain_gates, device="cpu")
-    assert solver.path == ("general" if k == 49 else "kernels")
+    assert solver.path == "kernels"
     x, f = solver.solve(x0, T)
     assert (f <= THRESH).all(), f
     np.testing.assert_allclose(f.numpy(), costs.square_cost(a.eval_fn(x), T).numpy(), atol=1e-13)

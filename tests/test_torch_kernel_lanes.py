@@ -34,6 +34,10 @@ LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM / polish lanes
 # (13), the sixteenth-iSwap's busiest (16) and deepest (24), and the last
 # (48: n = 294, 8 Adam / 3 LM / 2 polish lanes a block)
 GENERIC_KS = [13, 16, 24, 48]
+# the block shapes also at 64 and the last depth (kMaxK = 79): their lanes
+# against the plain versions take ~70 s here and are held on the card
+# (tests/test_torch_kernels.py, marked cuda; chip_smoke.py at 79)
+SHAPE_KS = [*GENERIC_KS, 64, ck.KERNEL_KS[-1]]
 GENERIC_L = 37
 ADAM_ATOL = 5e-5  # f32 association order only; 25 steps (the JAX kernel test's bound)
 
@@ -219,7 +223,7 @@ def generic_runs(lanes):
     return get
 
 
-@pytest.mark.parametrize("k", GENERIC_KS)
+@pytest.mark.parametrize("k", SHAPE_KS)
 def test_generic_shape_fits_a_block(lanes, k):
     """The lanes a block of each generic program at depth k: gate lists and
     workspaces within the 227 KB a block may use, at most the instances'
@@ -240,6 +244,22 @@ def test_generic_shape_fits_a_block(lanes, k):
             lanes.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb))
             got.append(la.value)
         assert got == [8, 3, 2]
+
+
+def test_kernel_depths_end_where_a_block_stops_fitting(lanes):
+    """The kernels cover depths 1..kMaxK (79): there one unit of each generic
+    program (a warp of 8 Adam lanes, one LM or polish lane) fits beside its
+    gate lists in 227 KB; at kMaxK + 1 the polish's does not."""
+    kmax, kb = ck.KERNEL_KS[-1], 227 * 1024
+
+    def block(kernel, k):
+        la, lb, gb = ctypes.c_int(), ctypes.c_long(), ctypes.c_long()
+        lanes.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb))
+        return gb.value + la.value * lb.value
+
+    assert ck.KERNEL_KS == tuple(range(1, kmax + 1)) and kmax == 79
+    assert all(block(kernel, kmax) <= kb for kernel in range(3))
+    assert block(2, kmax + 1) > kb
 
 
 @pytest.mark.parametrize("k", GENERIC_KS)

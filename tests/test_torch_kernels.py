@@ -23,9 +23,9 @@ from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_bat
 
 pytestmark = pytest.mark.cuda
 # every depth the kernels are instantiated for, then depths of the
-# depth-generic programs (13..48: the first, the sixteenth-iSwap's busiest
-# and deepest, the last)
-KS = [*range(1, 13), 13, 16, 24, 48]
+# depth-generic programs (13..79: the first, the sixteenth-iSwap's busiest
+# and deepest, 48, 64 and the last)
+KS = [*range(1, 13), 13, 16, 24, 48, 64, 79]
 LANES = [512, 509]  # 509: a partial last block (32 / 24 / 16 / 8 Adam lanes, 4 / 3 / 2 LM and polish lanes a block)
 
 
@@ -53,17 +53,21 @@ def _inputs(k, dev, seed=0, L=512):
 @pytest.mark.parametrize("k", KS)
 def test_adam_kernel_matches_plain(dev, k, L):
     _, g32, _, T32, x0 = _inputs(k, dev, L=L)
-    sched = ck.adam_schedule(100, device=dev)[:25].contiguous()
+    # f32 association order only: 25 steps and 5e-5 (the JAX kernel test's
+    # bound). On deep chains Adam's normalised step turns rounding of a
+    # near-zero gradient component into a full step, the plain version's
+    # too: there (the depth-generic programs) 5 steps, a lane's bound the
+    # plain result's own shift under a one-ulp move of the start where that
+    # is larger (past ~25 steps at n >= 390 that shift no longer bounds
+    # rounding: tools/adam_steps.py, PERF.md section 6)
+    generic = k > max(ck.INSTANCE_KS)
+    sched = ck.adam_schedule(100, device=dev)[:5 if generic else 25].contiguous()
     before = ck.adam_chain.launches
     got = ck.adam_chain(x0, T32, g32, sched)
     assert ck.adam_chain.launches == before + 1
     want = ck.adam_chain_ref(x0, T32, g32, sched)
-    # f32 association order only; 25 steps (the JAX kernel test's bound). On
-    # deep chains Adam amplifies f32 rounding past it on some lanes, the
-    # plain version's too: there the bound is the plain result's own shift
-    # under a one-ulp move of the start
     d = (got - want).abs().amax(1)
-    bound = torch.clamp_min(adam_ulp_spread(x0, T32, g32, sched), 5e-5) if k > max(ck.INSTANCE_KS) else 5e-5
+    bound = torch.clamp_min(adam_ulp_spread(x0, T32, g32, sched, want), 5e-5) if generic else 5e-5
     assert (d <= bound).float().mean().item() >= 0.99
 
 
@@ -140,10 +144,10 @@ def test_generic_program_matches_the_k12_instance(dev):
 
 def test_kernels_refuse_uninstantiated_depth(dev):
     g64, g32, T, T32, _ = _inputs(2, dev)
-    g49 = torch.cat([g32] * 24 + [g32[:1]]).contiguous()  # k = 49: 300 parameters, no kernel
-    x = torch.zeros((T32.shape[0], 300), dtype=torch.float32, device=dev)
+    g80 = torch.cat([g32] * 40).contiguous()  # k = 80: 486 parameters, no kernel
+    x = torch.zeros((T32.shape[0], 486), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
-        ck.lm_chain(x, T32, g49, 1)
+        ck.lm_chain(x, T32, g80, 1)
 
 
 def test_batch_synth_on_the_card(dev):

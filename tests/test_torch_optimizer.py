@@ -130,14 +130,14 @@ def test_spanning_early_exit():
 
 def test_default_spanning_range_reaches_depth_5_without_error():
     """The default range is 1..5: every depth of it takes the kernel path by
-    rule (on any device; the kernels cover depths 1..48), SWAP is solved at 3
-    and never gets to 4 or 5; a chain of depth 49 takes the general path."""
+    rule (on any device; the kernels cover depths 1..79), SWAP is solved at 3
+    and never gets to 4 or 5; a chain of depth 80 takes the general path."""
     opt = _opt(_basis(gates.SQISWAP), training_restarts=3)
     assert opt.spanning_range == [1, 2, 3, 4, 5]
     res = opt.approximate_from_distribution(gates.SWAP.to_numpy())
     assert res.success.all() and res.cycles.tolist() == [3]
-    assert all(opt._solver_for(k, opt.basis(k))[1] == "kernels" for k in (4, 5, 6, 7, 12, 13, 24, 48))
-    assert opt._solver_for(49, opt.basis(49))[1] == "general"
+    assert all(opt._solver_for(k, opt.basis(k))[1] == "kernels" for k in (4, 5, 6, 7, 12, 13, 24, 48, 64, 79))
+    assert opt._solver_for(80, opt.basis(80))[1] == "general"
 
 
 def test_b_basis_haar_k2():
