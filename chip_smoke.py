@@ -107,8 +107,33 @@ Phases, one line each (more for the build report):
      depth 1 from 256 restarts, and the chain template forced through the
      general solver against the kernel path from the same starts, restart
      by restart;
- 13. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 12) and the whole run's seconds, then the device
+ 13. the driven (Trotter) path, counted like the main path, each part with
+     its seconds, launches, general-solver calls, path and peak memory:
+     (a) smush_u, evolve_smush and smush_prefix_unitaries on the card
+     against the CPU's f64 at 1e-12, the prefix products by log-depth
+     doubling against the running product (both timed), the device kernels
+     of one driven evaluation, Adam step and LM iteration at 32 lanes
+     (torch.profiler), and sample_smush_coords on the iSwap cycle at k = 1,
+     2, 3 (3000 samples each, timed); (b) improved_cx at seeds 0, 1, 2, 32
+     restarts: certified <= 1e-10 on the general solver, its locals
+     rebuilding CNOT within trace infidelity 1e-10; (c) improved_swap(
+     exact=True), 16 restarts: certified on the chain kernels at K = 3, one
+     launch of each, then the kernels against their plain versions at those
+     lanes with phase 3's limits; (d) the golden improved_swap_2pulse.json
+     through evaluate_drive_sequence, < 1e-10; (e) improved_swap_two_pulse
+     at seed 0, certified and rebuilding SWAP, and improved_swap()'s [1.0,
+     0.5] plan (its loss printed, ~1e-5 by design); (f) VSWAP from
+     hamiltonian_ansatz(circulator_u, 7) through TemplateOptimizer, loss <
+     1e-8; (g) GRAPE on CNOT: the hs functional (8 restarts x 300
+     iterations, 8 slices, printed) and the li functional (8 x 400, 16
+     slices: value < 1e-3, CNOT's coordinates within 0.05); (h)
+     extend_coverage(save=False) of iSwap, sqiSwap, CNOT and B: every row's
+     cnot / swap / b flags equal to slam_decomposition_tpu/data/
+     extended_results.json, the exact base volume within 1e-9, the extended
+     volume within 0.02 or the JAX package's own spread over three seeds
+     where wider (EXT_VOL_SPREAD), the seconds per gate;
+ 14. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 13) and the whole run's seconds, then the device
      line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
@@ -265,6 +290,20 @@ PARALLEL_EXPECTED_COST, EXPECTED_COST_ATOL = 2.041729136984176, 1e-12
 COVERAGE_BUILDS = (("sqiswap", None), ("quarter-iSwap", (0.0, math.pi / 8)), ("eighth-iSwap", (0.0, math.pi / 16)))
 # the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
 RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
+# the driven path (phase 13): the card's f64 against the CPU's, the
+# certification bars of the pulse solves, and the extended-coverage gates
+DRIVEN_PARITY_ATOL = 1e-12
+DRIVEN_CERT, VSWAP_LOSS_MAX = 1e-10, 1e-8
+DRIVEN_SEEDS, DRIVEN_RESTARTS, SWAP_EXACT_RESTARTS = (0, 1, 2), 32, 16
+SMUSH_SAMPLES, SMUSH_SAMPLE_KS = 3000, (1, 2, 3)
+EXTENDED_GATES = ("iSwap", "sqiSwap", "CNOT", "B")
+# an extended volume's limit against extended_results.json: 0.02, or the JAX
+# package's own spread over the seeds 7, 8, 9 where wider: CNOT k=2 reads
+# 0.87186 / 0.932355 / 0.935165 (scripts/jax_extended_spread.py on the CPU;
+# every other row spreads 0.0189 or less, PERF.md section 6)
+EXT_VOL_ATOL = 0.02
+EXT_VOL_SPREAD = {("CNOT", "2"): 0.063305}
+EXT_BASE_ATOL = 1e-9  # the exact base volume against the file's
 
 
 class SmokeFailure(RuntimeError):
@@ -1144,6 +1183,234 @@ def phase_general(card, counted):
         check((general_solver.certify(xg, T)[fg <= THRESH] <= THRESH + CERT_ATOL).all(), "general path's cost is not its x's")
 
 
+def _trace_infidelity(target, U):
+    return 1.0 - abs(np.trace(np.asarray(target).conj().T @ U)) / 4.0
+
+
+def device_launches(fn):
+    """(device kernels launched, device seconds) of fn() under torch.profiler
+    (after one warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    return sum(e.count for e in device), sum(e.device_time_total for e in device) / 1e6
+
+
+def driven_parity(card):
+    """13 (a): the propagators on the card against the port's CPU f64, the
+    prefix products by doubling against the running product, the launches
+    of one driven evaluation, Adam step and LM iteration (the class fit of
+    improved_cx at 32 lanes), and the Monte-Carlo sampler's seconds."""
+    from slam_decomposition_torch.explore.smush_volume import NAMED_GATES, sample_smush_coords
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models.trajectory import prefix_products, smush_prefix_unitaries
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import makhlin_residual
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    x = rng.uniform(-4 * np.pi, 4 * np.pi, (4096, 10))  # drives to the sampler's largest bound
+    xs = [torch.as_tensor(x, device=d) for d in (dev, "cpu")]
+    U = [ham.smush_u(a[:, 0], a[:, 1], np.pi / 4, np.pi / 4, a[:, 2:6], a[:, 6:], t=1.0) for a in xs]
+    err_u = (U[0].cpu() - U[1]).abs().max().item()
+    gx, gy = rng.uniform(-4, 4, (2, 64))
+    psi = torch.zeros(4, dtype=torch.complex128)
+    psi[1] = 1.0
+    S = [ham.evolve_smush(0.3, 0.1, np.pi / 2, 0.2, torch.as_tensor(gx, device=d), torch.as_tensor(gy, device=d),
+                          psi.to(d)) for d in (dev, "cpu")]
+    err_s = (S[0].cpu() - S[1]).abs().max().item()
+    P = [smush_prefix_unitaries(0.3, 0.1, np.pi / 2, 0.2, gx, gy, device=d) for d in (dev, "cpu")]
+    err_p = (P[0].cpu() - P[1]).abs().max().item()
+    # the prefix products: log-depth doubling against the running product,
+    # on one explorer trajectory (50 slices) and on 4096 pulses of 64 slices
+    times = {}
+    for label, Us in (("50", ham.smush_slices(0.3, 0.1, np.pi / 2, 0.2, torch.as_tensor(gx[:50], device=dev),
+                                              torch.as_tensor(gy[:50], device=dev))),
+                      ("4096x64", ham.smush_slices(0.0, 0.0, np.pi / 2, 0.0, torch.as_tensor(
+                          rng.uniform(-4, 4, (4096, 64)), device=dev), torch.zeros(4096, 64, device=dev,
+                                                                                   dtype=torch.float64)))):
+        def running(Us=Us):
+            out = [Us[..., 0, :, :]]
+            for i in range(1, Us.shape[-3]):
+                out.append(Us[..., i, :, :] @ out[-1])
+            return torch.stack(out, dim=-3)
+
+        (pd, ms_d), (pr, ms_r) = timed_ms(lambda Us=Us: prefix_products(Us)), timed_ms(running)
+        check((pd - pr).abs().max().item() <= DRIVEN_PARITY_ATOL, f"prefix products {label}: doubling != running")
+        times[label] = (ms_d, ms_r)
+    print(f"[driven] {card}: (a) smush_u 4096 x 4 slices (drives to 4 pi) card vs CPU f64 max|d| {err_u:.3e}, "
+          f"evolve_smush 64 slices {err_s:.3e}, smush_prefix_unitaries 64 slices {err_p:.3e} (need <= "
+          f"{DRIVEN_PARITY_ATOL:g}); prefix products, doubling against the running product: "
+          + ", ".join(f"{k} slices {d:.3f} / {r:.3f} ms" for k, (d, r) in times.items()))
+    check(max(err_u, err_s, err_p) <= DRIVEN_PARITY_ATOL, "driven propagators on the card differ from the CPU's")
+    # launches of the class fit's pieces at improved_cx's 32 lanes
+    x32 = torch.as_tensor(rng.uniform(-4, 4, (32, 10)), device=dev)
+    cnot = torch.as_tensor(gates.CNOT.to_numpy(), device=dev).expand(32, 4, 4)
+
+    def pulse(x):
+        return ham.smush_u(x[..., 0], x[..., 1], np.pi / 2, 0.0, x[..., 2:6], x[..., 6:], t=1.0)
+
+    def adam_step():
+        xg = x32.float().detach().requires_grad_(True)
+        r = makhlin_residual(pulse, xg, cnot.to(torch.complex64))
+        torch.autograd.grad((r * r).sum(), xg)
+
+    def lm_iteration():
+        ck.lm_loop(lambda a: makhlin_residual(pulse, a, cnot), lambda a: makhlin_residual(pulse, a, cnot), x32, 1)
+
+    reads = {name: device_launches(fn) for name, fn in
+             (("evaluation", lambda: pulse(x32)), ("Adam step", adam_step), ("LM iteration", lm_iteration))}
+    print(f"[driven] {card}: (a) launches at 32 lanes, 4 slices (torch.profiler): "
+          + ", ".join(f"{k} {n} kernels, {s * 1e3:.3f} ms device" for k, (n, s) in reads.items())
+          + f"; the class fit's 400 Adam steps + 32 LM iterations ~ "
+          f"{400 * reads['Adam step'][0] + 32 * reads['LM iteration'][0]} kernels")
+    gc, gg, t, _ = NAMED_GATES["iSwap"]
+    sample_smush_coords(gc, gg, t, 1, 30, device=dev)  # warm
+    for k in SMUSH_SAMPLE_KS:
+        t0 = time.perf_counter()
+        c = sample_smush_coords(gc, gg, t, k, SMUSH_SAMPLES, seed=k, device=dev)
+        torch.cuda.synchronize()
+        print(f"[driven] {card}: (a) sample_smush_coords iSwap k={k} {SMUSH_SAMPLES} samples "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(c.shape == (SMUSH_SAMPLES, 3) and np.isfinite(c).all(), f"sample_smush_coords k={k}")
+
+
+def driven_solves(card, counted, stats):
+    """13 (b)-(f): the pulse solves and the circulator synthesis."""
+    from slam_decomposition_torch.config import data_dir
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models import trajectory as traj
+    from slam_decomposition_torch.models.templates import hamiltonian_ansatz
+    from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
+
+    def line(part, what, wall, launches, general, peak, extra=""):
+        print(f"[driven] {card}: ({part}) {what}: {extra}{wall:.3f} s, kernel launches {launches}, general-solver "
+              f"calls {general}, peak device memory {peak:.0f} MiB")
+
+    # (b) the parallel-driven CX: one application + exact locals
+    cnot = gates.CNOT.to_numpy()
+    for seed in DRIVEN_SEEDS:
+        (x, loss, locs), wall, launches, general, peak = counted(
+            lambda: traj.improved_cx(seed=seed, restarts=DRIVEN_RESTARTS))
+        rebuilt = _trace_infidelity(cnot, traj.evaluate_drive_sequence(x, [1.0], np.pi / 2, 0.0, 4, locs))
+        line("b", f"improved_cx seed {seed}, {DRIVEN_RESTARTS} restarts", wall, launches, general, peak,
+             f"loss {loss:.3e}, locals rebuild CNOT at trace infidelity {rebuilt:.3e} (need <= {DRIVEN_CERT:g}), "
+             f"path general, ")
+        check(loss <= DRIVEN_CERT and rebuilt <= DRIVEN_CERT, f"improved_cx seed {seed}: loss {loss}, rebuilt {rebuilt}")
+        check_counts(f"improved_cx seed {seed}", launches, general, 0, 1)
+    # (c) the exact SWAP: three zero-drive pulses, the chain kernels at K = 3
+    swap = gates.SWAP.to_numpy()
+    (p, loss, locs), wall, launches, general, peak = counted(
+        lambda: traj.improved_swap(exact=True, restarts=SWAP_EXACT_RESTARTS))
+    U = traj.evaluate_drive_sequence(p, [0.5, 0.5, 0.5], np.pi / 2, 0.0, 4, locs)
+    rebuilt = _trace_infidelity(swap, U)
+    line("c", f"improved_swap(exact=True), {SWAP_EXACT_RESTARTS} restarts", wall, launches, general, peak,
+         f"loss {loss:.3e}, locals rebuild SWAP at {rebuilt:.3e}, path kernels, ")
+    check(loss <= DRIVEN_CERT and rebuilt <= DRIVEN_CERT, f"improved_swap exact: loss {loss}, rebuilt {rebuilt}")
+    check_counts("improved_swap exact", launches, general, 1, 0)
+    zero = np.zeros(4)
+    pd_sq = gates._const_gate("pd_sq_zero", 2, ham.smush_u(0.0, 0.0, np.pi / 2, 0.0, zero, zero, t=0.5).numpy())
+    phase_parity(stats, ks=(3,), targets=1, restarts=SWAP_EXACT_RESTARTS, tag="_pdswap", gate=pd_sq)
+    # (d) the golden two-pulse SWAP
+    art = json.loads((data_dir() / "improved_swap_2pulse.json").read_text())
+    locs = [np.array([[complex(re, im) for re, im in row] for row in L]) for L in art["locals"]]
+    golden = _trace_infidelity(swap, traj.evaluate_drive_sequence(
+        art["params"], art["plan"], art["gc"], art["gg"], art["n_slices"], locs))
+    print(f"[driven] {card}: (d) golden improved_swap_2pulse.json through evaluate_drive_sequence: trace infidelity "
+          f"{golden:.3e} (need < {DRIVEN_CERT:g})")
+    check(golden < DRIVEN_CERT, f"golden artifact {golden}")
+    # (e) the two-pulse SWAP solved fresh, and the [1.0, 0.5] plan (~1e-5 by design)
+    (x, loss, locs), wall, launches, general, peak = counted(lambda: traj.improved_swap_two_pulse(seed=0))
+    rebuilt = _trace_infidelity(swap, traj.evaluate_drive_sequence(x, [1.0, 1.0], np.pi / 2, 0.0, 4, locs))
+    line("e", "improved_swap_two_pulse seed 0", wall, launches, general, peak,
+         f"loss {loss:.3e}, locals rebuild SWAP at {rebuilt:.3e} (need <= {DRIVEN_CERT:g}), path general, ")
+    check(loss <= DRIVEN_CERT and rebuilt <= DRIVEN_CERT, f"improved_swap_two_pulse: loss {loss}, rebuilt {rebuilt}")
+    check(all(v == 0 for v in launches.values()) and general in (1, 2), f"two-pulse: {launches}, {general}")
+    (x, loss, _), wall, launches, general, peak = counted(lambda: traj.improved_swap(seed=0))
+    line("e", "improved_swap() [1.0, 0.5] seed 0 (not gated)", wall, launches, general, peak, f"loss {loss:.3e}, ")
+    # (f) VSWAP from the circulator's own parameters
+    ansatz = hamiltonian_ansatz(
+        lambda p1, p2, p3, g1, g2, g3, t: ham.circulator_u(p1, p2, p3, g1, g2, g3, t=t), 7,
+        lower=np.array([-np.pi, -np.pi, -np.pi, 0, 0, 0, 0.5]), upper=np.array([np.pi, np.pi, np.pi, 1.5, 1.5, 1.5, 1.5]),
+        n_qubits=3,
+    )
+    opt = TemplateOptimizer(ansatz, objective="square", training_restarts=12, override_fail=True, max_iters=300)
+    res, wall, launches, general, peak = counted(lambda: opt.approximate_target_U(gates.vswap().to_numpy()))
+    line("f", "VSWAP from hamiltonian_ansatz(circulator_u, 7), 12 restarts", wall, launches, general, peak,
+         f"loss {res.loss[0]:.3e} (need < {VSWAP_LOSS_MAX:g}), path {opt.solver_paths[1]}, ")
+    check(res.loss[0] < VSWAP_LOSS_MAX, f"VSWAP loss {res.loss[0]}")
+    check_counts("vswap", launches, general, 0, 1)
+
+
+def driven_oct(card, counted):
+    """13 (g): GRAPE on CNOT."""
+    from slam_decomposition_torch.explore.oct import make_smush_eval, optimize_pulses
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.ops import weyl
+
+    cnot = gates.CNOT.to_numpy()
+    ev = make_smush_eval(np.pi / 2, 0.0, n_slices=8)
+    res, wall, _, _, peak = counted(
+        lambda: optimize_pulses(ev, 8, functional="hs", target=cnot, restarts=8, iters=300, seed=3))
+    print(f"[driven] {card}: (g) GRAPE hs CNOT, 8 restarts x 300 iterations, 8 slices: value {float(res.value):.4e} "
+          f"(not gated), {wall:.3f} s, peak {peak:.0f} MiB")
+    check(np.isfinite(res.value) and res.history.shape == (301,), "GRAPE hs")
+    ev = make_smush_eval(np.pi / 2, 0.0, n_slices=16)
+    res, wall, _, _, peak = counted(
+        lambda: optimize_pulses(ev, 16, functional="li", target=cnot, restarts=8, iters=400, lr=0.15, seed=2))
+    c = weyl.c1c2c3(res.U).cpu().numpy()
+    print(f"[driven] {card}: (g) GRAPE li CNOT, 8 restarts x 400 iterations, 16 slices: value {float(res.value):.4e} "
+          f"(need < 1e-3), coordinates {np.round(c, 5).tolist()} (need within 0.05 of [0.5, 0, 0]), {wall:.3f} s, "
+          f"peak {peak:.0f} MiB")
+    check(float(res.value) < 1e-3 and np.abs(c - [0.5, 0.0, 0.0]).max() <= 0.05, "GRAPE li does not reach CNOT's class")
+
+
+def driven_coverage(card, counted):
+    """13 (h): extend_coverage of four named gates against
+    extended_results.json."""
+    from slam_decomposition_torch.config import data_dir
+    from slam_decomposition_torch.explore.smush_volume import extend_coverage
+
+    want = json.loads((data_dir() / "extended_results.json").read_text())
+    t_phase = time.perf_counter()
+    for name in EXTENDED_GATES:
+        res, wall, launches, general, peak = counted(lambda: extend_coverage(name, save=False))
+        rows = []
+        for k, row in want[name].items():
+            got = res[k]
+            lim = max(EXT_VOL_ATOL, EXT_VOL_SPREAD.get((name, k), 0.0))
+            ok = (got[2:] == row[2:] and abs(got[1] - row[1]) <= lim and abs(got[0] - row[0]) <= EXT_BASE_ATOL)
+            rows.append(f"k={k} base {got[0]:.6f} ext {got[1]:.6f} (file {row[1]:.6f}, limit {lim:g}) "
+                        f"cnot/swap/b {got[2:]} (file {row[2:]}){'' if ok else ' MISMATCH'}")
+            check(ok, f"extend_coverage {name} k={k}: {got} against {row}")
+        print(f"[driven] {card}: (h) extend_coverage {name}: {wall:.3f} s, peak {peak:.0f} MiB; " + "; ".join(rows))
+    print(f"[driven] {card}: (h) {len(EXTENDED_GATES)} gates in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_driven(card, counted, stats):
+    """13. The driven (Trotter) path: (a) propagators, prefix products,
+    launches and the sampler; (b)-(f) the pulse solves and the circulator;
+    (g) GRAPE; (h) the extended coverage."""
+    t0 = time.perf_counter()
+    driven_parity(card)
+    t1 = time.perf_counter()
+    driven_solves(card, counted, stats)
+    t2 = time.perf_counter()
+    driven_oct(card, counted)
+    t3 = time.perf_counter()
+    driven_coverage(card, counted)
+    t4 = time.perf_counter()
+    print(f"[driven] {card}: phase {t4 - t0:.1f} s: (a) {t1 - t0:.1f}, (b)-(f) {t2 - t1:.1f}, (g) {t3 - t2:.1f}, "
+          f"(h) {t4 - t3:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
@@ -1168,9 +1435,9 @@ def main() -> int:
         phase_coverage(card, counted, stats)
         phase_depth(card, counted, stats)
         phase_general(card, counted)
-        print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth and "
-              f"general-solver runs: "
-              f"{counted.total}")
+        phase_driven(card, counted, stats)
+        print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth, "
+              f"general-solver and driven runs: {counted.total}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

@@ -26,9 +26,11 @@ class MixedOrderBasisTemplate:
     """Holds a basis gate set's coverage and builds per-target templates.
 
     Conversion-gain gates are canonicalized (gc < gg, duration 1) so one
-    cached set serves the family. ``device`` is where the coverage is built
-    when no cache holds it, and where coordinates and membership run
-    (default: the card, or a tensor's own device)."""
+    cached set serves the family. ``smush`` takes the first gate's extended
+    (parallel-drive) set instead (``explore.smush_volume.
+    load_smush_coverage``). ``device`` is where the coverage is built when
+    no cache holds it, and where coordinates and membership run (default:
+    the card, or a tensor's own device)."""
 
     def __init__(self, base_gates: Sequence[Gate], smush: bool = False, max_layers: int = 10, device=None):
         canon = [G.cg_canonicalize(g) if len(g.params) == 5 else g for g in base_gates]
@@ -36,12 +38,13 @@ class MixedOrderBasisTemplate:
         self.gate_map: Dict[str, Gate] = {str(g): g for g in canon}
         self.device = device
         if smush:
-            raise NotImplementedError(
-                "the smush coverage (explore.smush_volume.load_smush_coverage) is not ported yet"
+            from slam_decomposition_torch.explore.smush_volume import load_smush_coverage
+
+            self.coverage = load_smush_coverage(canon[0])
+        else:
+            self.coverage = gate_set_to_coverage(
+                *canon, max_layers=max_layers, device=DEFAULT_DEVICE if device is None else device
             )
-        self.coverage = gate_set_to_coverage(
-            *canon, max_layers=max_layers, device=DEFAULT_DEVICE if device is None else device
-        )
         self.homogeneous = len(canon) == 1
 
     def range_for(self, target_u) -> Tuple[int, CircuitPolytope]:

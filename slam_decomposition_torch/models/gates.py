@@ -1,11 +1,12 @@
 """The gate zoo (JAX models/gates.py): ``Gate`` with its cost model, the
 fixed 2Q and 3Q gates, ``riswap``/``SQISWAP``, ``canonical``/``berkeley``,
-``fsim``/``syc``, ``conversion_gain_gate`` with its named instances and
-canonical forms, and ``custom_cost_gate``. The gates built from the smush,
-fsim and circulator Hamiltonians wait for those Hamiltonians.
+``fsim``/``syc`` and the fsim Hamiltonian's gate, ``conversion_gain_gate``
+with its named instances and canonical forms, the parallel-driven
+``smush_gate``, the 3Q circulator gates (``circulator_snail_gate``,
+``vswap``, ``delta_swap``) and ``custom_cost_gate``.
 
-A gate's matrix is built on the host in complex128; the conversion-gain
-propagator is ``models.hamiltonians.conversion_gain_u``.
+A gate's matrix is built on the host in complex128 from the propagators of
+``models.hamiltonians``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from slam_decomposition_torch.models.hamiltonians import conversion_gain_u
+from slam_decomposition_torch.models import hamiltonians as ham
 from slam_decomposition_torch.ops.weyl import MAGIC, V_SIGNS
 
 HALF_PI = np.pi / 2.0
@@ -119,6 +120,15 @@ def syc() -> Gate:
     return dataclasses.replace(fsim(np.pi / 2, np.pi / 6), name="SYC")
 
 
+def fsim_hamiltonian_gate(g: float, eta: float, t: float) -> Gate:
+    """FSim from its Hamiltonian (``hamiltonians.fsim_u``)."""
+
+    def fn(g_, eta_, t_):
+        return ham.fsim_u(g_, eta_, t=t_).numpy()
+
+    return Gate(name=f"fsimH({g:.4f},{eta:.4f},{t:.4f})", n_qubits=2, params=(g, eta, t), _matrix_fn=fn)
+
+
 def _cg_cost(p1, p2, g1, g2, t):
     return (abs(g1) + abs(g2)) * t / HALF_PI
 
@@ -132,7 +142,7 @@ def conversion_gain_gate(p1: float, p2: float, g1: float, g2: float, t: float = 
     """Phased conversion+gain evolution; params (phi_c, phi_g, gc, gg, t)."""
 
     def fn(p1_, p2_, g1_, g2_, t_):
-        return conversion_gain_u(g1_, g2_, phi_c=p1_, phi_g=p2_, t=t_).numpy()
+        return ham.conversion_gain_u(g1_, g2_, phi_c=p1_, phi_g=p2_, t=t_).numpy()
 
     return Gate(
         name=cg_hash(g1, g2, t),
@@ -184,7 +194,57 @@ def cg_sqb() -> Gate:
     return conversion_gain_gate(0, 0, 3 * np.pi / 8, np.pi / 8, 0.5)
 
 
+def smush_gate(pc, pg, gc, gg, gx_vec, gy_vec, t=1.0) -> Gate:
+    """Parallel-driven conversion + gain gate (``hamiltonians.smush_u``);
+    params (pc, pg, gc, gg, *gx, *gy, t). Its cost ignores the 1Q drives."""
+    gx_vec = tuple(float(x) for x in np.atleast_1d(gx_vec))
+    gy_vec = tuple(float(y) for y in np.atleast_1d(gy_vec))
+    n = len(gx_vec)
+
+    def fn(pc_, pg_, gc_, gg_, *rest):
+        return ham.smush_u(pc_, pg_, gc_, gg_, rest[:n], rest[n:-1], t=rest[-1]).numpy()
+
+    return Gate(
+        name=f"2QSmushGate({gc:.8f}, {gg:.8f}, {t:.8f}, n={n})",
+        n_qubits=2,
+        params=(pc, pg, gc, gg) + gx_vec + gy_vec + (t,),
+        _matrix_fn=fn,
+        _cost_fn=lambda pc_, pg_, gc_, gg_, *rest: (abs(gc_) + abs(gg_)) * rest[-1] / HALF_PI,
+    )
+
+
 # ----------------------------------------------------------------- 3Q gates
+
+
+def circulator_snail_gate(p1, p2, p3, g1, g2, g3, t=1.0) -> Gate:
+    """3Q circulator gate (``hamiltonians.circulator_u``); cost = sum |g| t /
+    (pi/2)."""
+
+    def fn(p1_, p2_, p3_, g1_, g2_, g3_, t_):
+        return ham.circulator_u(p1_, p2_, p3_, g1_, g2_, g3_, t=t_).numpy()
+
+    return Gate(
+        name="3QGate",
+        n_qubits=3,
+        params=(p1, p2, p3, g1, g2, g3, t),
+        _matrix_fn=fn,
+        _cost_fn=lambda p1_, p2_, p3_, g1_, g2_, g3_, t_: (abs(g1_) + abs(g2_) + abs(g3_)) * t_ / HALF_PI,
+    )
+
+
+def vswap(t: float = 1.0) -> Gate:
+    """VSWAP: the circulator at its published parameters."""
+    v_nn = 4.0 / np.sqrt(2.0)
+    g = circulator_snail_gate(np.pi / 2, np.pi / 2, 0.0, np.pi / v_nn, np.pi / v_nn, 0.0, t)
+    return dataclasses.replace(g, name="VSWAP")
+
+
+def delta_swap(t: float = 1.0) -> Gate:
+    """Delta-iSWAP: the circulator with all three couplings on."""
+    nn = 3.0 * np.sqrt(3.0) / 2.0
+    g = circulator_snail_gate(np.pi / 2, -np.pi / 2, np.pi / 2, np.pi / nn, np.pi / nn, np.pi / nn, t)
+    return dataclasses.replace(g, name="D-iSWAP")
+
 
 CPARITY_SWAP = _const_gate("cpswap", 3, np.eye(8)[[0, 4, 1, 6, 2, 3, 5, 7]])
 MARGOLUS = _const_gate(

@@ -1,5 +1,5 @@
 """Monodromy and Weyl-chamber coordinates of 2Q unitaries (JAX
-ops/weyl.py:46-170, 205-250), all in f64 on native complex128
+ops/weyl.py:46-170, 205-261), all in f64 on native complex128
 tensors (the trace-only invariants in the dtype they are given).
 
 Conventions are the JAX package's: magic basis
@@ -164,3 +164,13 @@ def canonical_gate(c: torch.Tensor) -> torch.Tensor:
     ph = torch.complex(torch.cos(mu), torch.sin(mu))
     B = torch.as_tensor(MAGIC, dtype=cdt, device=c.device)
     return (B * ph[..., None, :]) @ B.conj().T
+
+
+def positive_canonical_to_monodromy(c) -> torch.Tensor:
+    """Chamber coordinates (..., 3) in units of pi/2 -> one monodromy
+    representative (..., 4), descending (JAX ops/weyl.py:253-261). Points of
+    the chamber need no alcove reduction."""
+    c = torch.as_tensor(c, dtype=torch.float64)
+    x, y, z = c[..., 0] / 2.0, c[..., 1] / 2.0, c[..., 2] / 2.0
+    a = torch.stack([x + y - z, x - y + z, -x + y + z, -x - y - z], dim=-1)
+    return torch.sort(a, dim=-1, descending=True).values

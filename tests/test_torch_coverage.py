@@ -344,5 +344,10 @@ def test_cost_from_distribution_matches_jax(which, jax_pd, port_pd):
 
 
 def test_smush_template_is_not_ported():
-    with pytest.raises(NotImplementedError, match="smush_volume"):
-        MixedOrderBasisTemplate([gates.cg_sqiswap()], smush=True, device=CPU)
+    """The smush branch is ported: it reads a gate's extended set and
+    refuses, as the JAX package does, a gate for which none was built."""
+    t = MixedOrderBasisTemplate([gates.cg_sqiswap()], smush=True, device=CPU)
+    assert [c.operations for c in t.coverage] == [c.operations for c in jmixed.MixedOrderBasisTemplate(
+        [jgates.cg_sqiswap()], smush=True).coverage]
+    with pytest.raises(ValueError, match="extend_coverage"):
+        MixedOrderBasisTemplate([_pd()], smush=True, device=CPU)

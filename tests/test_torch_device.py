@@ -19,7 +19,10 @@ from slam_decomposition_torch.coverage.coverage import (
 )
 from slam_decomposition_torch.coverage.haar import haar_monodromy_samples
 from slam_decomposition_torch.coverage.mixed import MixedOrderBasisTemplate
+from slam_decomposition_torch.explore import smush_volume
+from slam_decomposition_torch.explore.oct import make_smush_eval
 from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.models import trajectory
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops.kak_batch import make_analytic_init
 from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver, make_analytic_solver, make_solver
@@ -30,6 +33,7 @@ from slam_decomposition_torch.transpile import library
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 from slam_decomposition_torch.transpile.consolidate import block_coordinate_counts
 from slam_decomposition_torch.transpile.passes import pass_manager_basic
+from slam_decomposition_torch.utils.playground import ParallelDriveExplorer
 
 U = haar_sample(4, seed=3)
 ANSATZ = build_ansatz(cycle_gates([gates.SQISWAP], 2))
@@ -57,6 +61,18 @@ ENTRY_POINTS = {
     "circuit_to_polytope": lambda: circuit_to_polytope([gates.CNOT]),
     "haar_monodromy_samples": lambda: haar_monodromy_samples(8, seed=0),
     "MixedOrderBasisTemplate.cost_from_distribution": lambda: MixedOrderBasisTemplate([gates.cg_sqiswap()]).cost_from_distribution(U),
+    "smush_prefix_unitaries": lambda: trajectory.smush_prefix_unitaries(0, 0, 1.0, 0, [1.0, 2.0], [0.0, 1.0]),
+    "smush_trajectory": lambda: trajectory.smush_trajectory(0, 0, 1.0, 0, [1.0, 2.0], [0.0, 1.0]),
+    "drive_pulse_for_target": lambda: trajectory.drive_pulse_for_target(U[0], 1.0, 0.0, restarts=1),
+    "improved_cx": lambda: trajectory.improved_cx(restarts=1),
+    "improved_swap(exact)": lambda: trajectory.improved_swap(exact=True, restarts=1),
+    "improved_swap_two_pulse": lambda: trajectory.improved_swap_two_pulse(restarts=1),
+    "evaluate_drive_sequence": lambda: trajectory.evaluate_drive_sequence(np.zeros(10), [1.0], 1.0, 0.0, 4),
+    "make_smush_eval": lambda: make_smush_eval(1.0, 0.0, 4),
+    "sample_smush_coords": lambda: smush_volume.sample_smush_coords(1.0, 0.0, 1.0, 1, n_samples=3),
+    "targeted_smush_coords": lambda: smush_volume.targeted_smush_coords(1.0, 0.0, 1.0, 1, restarts=1, iters=1),
+    "extend_coverage": lambda: smush_volume.extend_coverage("B", save=False),
+    "ParallelDriveExplorer": lambda: ParallelDriveExplorer(N=2, R=2),
 }
 
 

@@ -38,3 +38,16 @@ def test_no_jax_import_in_source(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import jax|from jax)\b", src, re.M)
     assert not re.search(r"^\s*(import|from) slam_decomposition_tpu\b", src, re.M)
+
+
+def test_driven_modules_are_checked():
+    """The driven path's modules are among those imported without jax above."""
+    driven = {
+        "slam_decomposition_torch.models.hamiltonians",
+        "slam_decomposition_torch.models.trajectory",
+        "slam_decomposition_torch.explore.oct",
+        "slam_decomposition_torch.explore.smush_volume",
+        "slam_decomposition_torch.utils.playground",
+        "slam_decomposition_torch.utils.visualize",
+    }
+    assert driven <= set(MODULES)
