@@ -132,8 +132,24 @@ Phases, one line each (more for the build report):
      extended_results.json, the exact base volume within 1e-9, the extended
      volume within 0.02 or the JAX package's own spread over three seeds
      where wider (EXT_VOL_SPREAD), the seconds per gate;
- 14. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 13) and the whole run's seconds, then the device
+ 14. the speed-limit transpilation path, counted like the main path: (a)
+     each kernel against its plain version on the chain of the winner
+     conversion_gain_gate(0, 0, pi/80, 0.2375 pi, 1) (both drives on) at
+     the lanes QFT-64's fit launches (K = 2: 1350 targets x 8 restarts, K =
+     4: 32 x 8) with phase 3's limits; (b) explore.winners.pick_winner of
+     the linear speed limit at duration_1q 0 and 0.25 equal to the JAX
+     package's winners, scaled durations and scores; (c)
+     transpile.passes.pass_manager_slam(qft(64), duration_1q=0.25,
+     fit_1q=True) cold and warm: duration 190.75 and the JAX gate counts,
+     one launch of each kernel per structure group (2 groups), each group's
+     fitted blocks no fewer than the JAX package's less 1% of the group,
+     every fitted block rebuilding its block's unitary within 1e-9, the
+     wall clock of both runs; (d) the headline rows (tools/headline.py):
+     SWAP 2.5 -> 2.25, VQE(Linear)-16 routed on the 4x4 grid at seed 0
+     25.75 -> 21.5, and the protocol cut to 1 x 2 route seeds and 50 Haar
+     targets equal to the JAX package's values;
+ 15. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 14) and the whole run's seconds, then the device
      line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
@@ -304,6 +320,32 @@ EXTENDED_GATES = ("iSwap", "sqiSwap", "CNOT", "B")
 EXT_VOL_ATOL = 0.02
 EXT_VOL_SPREAD = {("CNOT", "2"): 0.063305}
 EXT_BASE_ATOL = 1e-9  # the exact base volume against the file's
+
+# the SLAM pass (phase 14). The JAX package's own values on the CPU (PERF.md
+# section 6): the winners of the linear speed limit at duration_1q 0
+# and 0.25 (parameters, scaled duration, E[Haar] score), QFT-64's duration
+# and gate counts, and per group of winner applications its blocks and the
+# blocks its fit certified at 1e-10 (8 restarts, seed 0)
+SLAM_WINNERS = {0.0: ((0.0, 0.0, 0.0, 0.09817477042468103, 1.0), 0.0625, 0.8837168724994596),
+                0.25: ((0.0, 0.0, 0.039269908169872414, 0.7461282552275759, 1.0), 0.5, 1.8524037105377018)}
+SLAM_D1Q, SLAM_RESTARTS, SLAM_DURATION = 0.25, 8, 190.75
+SLAM_GATES = {"u": 2984, "winner2q": 2828, "u1q": 2736}
+SLAM_JAX_FITS = {2: (830, 1350), 4: (32, 32)}  # applications: (fitted, blocks)
+SLAM_FIT_SLACK = 0.01  # the card may fit fewer than the JAX package by 1% of a group's blocks
+SLAM_BLOCK_DIST = 1e-9  # 1 - |tr(V^dag U)| / 4 of every fitted block
+# the headline protocol cut to 1 x 2 route seeds and 50 Haar targets
+# (slam_decomposition_torch/tools/headline.py), the JAX package's values
+# from scripts/headline_benchmarks.py main(16, 1, 2, 50) on the CPU
+HEADLINE_REDUCED = (16, 1, 2, 50)
+HEADLINE_JAX = {
+    "SWAP": {"basic": 2.5, "optimized": 2.25},
+    "haar_avg": {"basic": 1.915, "optimized": 1.57},
+    "QV": {"basic": 103.0, "optimized": 86.25, "basic_ref_metric": 103.0, "optimized_ref_metric": 85.75},
+    "VQE(Linear)": {"basic": 25.75, "optimized": 21.499999999999996, "basic_ref_metric": 25.75,
+                    "optimized_ref_metric": 21.499999999999996},
+    "VQE(Full)": {"basic": 247.75, "optimized": 212.5, "basic_ref_metric": 247.75, "optimized_ref_metric": 212.5},
+    "QFT": {"basic": 128.5, "optimized": 85.400390625, "basic_ref_metric": 128.5, "optimized_ref_metric": 84.9140625},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -1411,6 +1453,96 @@ def phase_driven(card, counted, stats):
           f"(h) {t4 - t3:.1f}")
 
 
+def slam_fit_checks(stats, blocks):
+    """Per structure group: fitted no fewer than the JAX package's less
+    SLAM_FIT_SLACK of the group, and every fitted block rebuilding its
+    block's unitary within SLAM_BLOCK_DIST."""
+    check(sorted(g["applications"] for g in stats) == sorted(SLAM_JAX_FITS),
+          f"structure groups {[g['applications'] for g in stats]}, expected {sorted(SLAM_JAX_FITS)}")
+    worst = 0.0
+    for g in stats:
+        j_fit, j_blocks = SLAM_JAX_FITS[g["applications"]]
+        least = math.ceil(j_fit - SLAM_FIT_SLACK * j_blocks)
+        for i, sub in g["circuits"].items():
+            U, V = blocks[i].unitary, sub.to_matrix()
+            worst = max(worst, 1 - abs(np.trace(V.conj().T @ U)) / 4)
+        print(f"[slam] group of {g['applications']} winner applications: {g['blocks']} blocks (JAX {j_blocks}), "
+              f"fitted {g['fitted']} (JAX {j_fit}, need >= {least}), worst certified cost {g['worst']:.3e}, "
+              f"path {g['path']}, {g['seconds']:.3f} s")
+        check(g["blocks"] == j_blocks and g["fitted"] >= least and g["path"] == "kernels",
+              f"group of {g['applications']}: {g['fitted']} of {g['blocks']} fitted on {g['path']}")
+    check(worst <= SLAM_BLOCK_DIST, f"a fitted block is {worst:.3e} from its unitary (limit {SLAM_BLOCK_DIST:g})")
+    return worst
+
+
+def phase_slam(card, counted, stats):
+    """14. The speed-limit transpilation path: (a) the kernels on the 0.25
+    winner's chain at QFT-64's lanes; (b) winner selection; (c)
+    pass_manager_slam(qft(64), fit_1q=True) cold and warm, counted; (d) the
+    headline rows, the reduced protocol against the JAX package's values."""
+    from slam_decomposition_torch.explore.candidates import load_candidates
+    from slam_decomposition_torch.explore.scaling import atomic_cost_scaling
+    from slam_decomposition_torch.explore.winners import pick_winner
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.tools import headline
+    from slam_decomposition_torch.transpile import library
+    from slam_decomposition_torch.transpile.consolidate import consolidate_2q_blocks
+    from slam_decomposition_torch.transpile.ir import unroll_3q_or_more
+    from slam_decomposition_torch.transpile.passes import pass_manager_slam
+    from slam_decomposition_torch.transpile.route import grid_coupling, route
+
+    t0 = time.perf_counter()
+    winner = gates.conversion_gain_gate(*SLAM_WINNERS[SLAM_D1Q][0])
+    for k, (_, blocks) in sorted(SLAM_JAX_FITS.items()):
+        phase_parity(stats, ks=(k,), targets=blocks, restarts=SLAM_RESTARTS, tag="_slam", gate=winner)
+    t1 = time.perf_counter()
+
+    bare = {tuple(p): s for p, s in load_candidates()}
+    for d1q, (params, duration, score) in SLAM_WINNERS.items():
+        g, scaled = pick_winner(f"linear_scaling_1q{d1q}", metric=0, device="cuda")
+        got = float(atomic_cost_scaling(g.params, bare[tuple(g.params)][0], "linear", d1q)[1])
+        print(f"[slam] pick_winner linear_scaling_1q{d1q}: {tuple(float(p) for p in g.params)}, scaled duration "
+              f"{scaled.duration}, score {got!r} (JAX {params}, {duration}, {score!r})")
+        check(np.allclose(g.params, params, rtol=0, atol=1e-12) and scaled.duration == duration
+              and abs(got - score) <= 1e-12, f"pick_winner linear_scaling_1q{d1q} differs from the JAX package's")
+    t2 = time.perf_counter()
+
+    qft = library.qft(QFT_Q)
+    blocks = consolidate_2q_blocks(unroll_3q_or_more(qft))
+    walls = {}
+    for run in ("cold", "warm"):
+        fit_stats = []
+        (out, m), wall, launches, general, peak = counted(
+            lambda: pass_manager_slam(qft, duration_1q=SLAM_D1Q, fit_1q=True, device="cuda", stats=fit_stats))
+        walls[run] = wall
+        print(f"[slam] {card}: pass_manager_slam(qft({QFT_Q}), duration_1q={SLAM_D1Q}, fit_1q=True) {run} "
+              f"{wall:.3f} s (the fit {sum(g['seconds'] for g in fit_stats):.3f} s of it), peak {peak:.0f} MiB: "
+              f"duration {m['duration']} (ref metric {m['duration_ref_metric']}), gates {m['gate_counts']}, "
+              f"depth {m['depth']}; launches {launches}, general-solver calls {general}")
+        check(m["duration"] == SLAM_DURATION and m["gate_counts"] == SLAM_GATES,
+              f"qft({QFT_Q}) SLAM pass: duration {m['duration']}, gates {m['gate_counts']}")
+        check_counts(f"slam {run}", launches, general, len(fit_stats), 0)
+        worst = slam_fit_checks(fit_stats, blocks)
+        print(f"[slam] {run}: every fitted block within {worst:.3e} of its unitary")
+    t3 = time.perf_counter()
+
+    db, do = headline.gate_duration(gates.SWAP.to_numpy(), "cuda")
+    c = route(library.vqe_linear(16, seed=0), grid_coupling(4, 4), seed=0, rows_cols=(4, 4))
+    mb, mo = headline.managers(c, "cuda")
+    print(f"[slam] headline SWAP {db} -> {do} (2.5 -> 2.25); VQE(Linear)-16 seed 0 {mb['duration']} -> "
+          f"{mo['duration']} (25.75 -> 21.5)")
+    check((db, do) == (2.5, 2.25) and abs(mb["duration"] - 25.75) <= 1e-9 and abs(mo["duration"] - 21.5) <= 1e-9,
+          "headline SWAP / VQE(Linear)-16 rows differ")
+    res = headline.main(*HEADLINE_REDUCED, device="cuda", log=lambda line: print(f"[slam] headline {line}"))
+    for row, want in HEADLINE_JAX.items():
+        for key, val in want.items():
+            check(abs(res[row][key] - val) <= 1e-9, f"headline {row} {key}: {res[row][key]!r}, JAX {val!r}")
+    t4 = time.perf_counter()
+    print(f"[slam] {card}: QFT-{QFT_Q} fit_1q wall clock cold {walls['cold']:.3f} s, warm {walls['warm']:.3f} s")
+    print(f"[slam] {card}: phase {t4 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
+          f"(d) {t4 - t3:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
@@ -1436,8 +1568,9 @@ def main() -> int:
         phase_depth(card, counted, stats)
         phase_general(card, counted)
         phase_driven(card, counted, stats)
+        phase_slam(card, counted, stats)
         print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth, "
-              f"general-solver and driven runs: {counted.total}")
+              f"general-solver, driven and SLAM runs: {counted.total}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

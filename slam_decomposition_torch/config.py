@@ -18,12 +18,21 @@ import torch
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
+JAX_DATA_DIR = REPO_ROOT / "slam_decomposition_tpu" / "data"  # the JAX package's own data, read only
+
+
 def data_dir() -> pathlib.Path:
     """Directory holding ``polytope_coverage_*.pkl`` and the other data files."""
     env = os.environ.get("SLAM_DATA_DIR")
     if env:
         return pathlib.Path(env)
-    return REPO_ROOT / "slam_decomposition_tpu" / "data"
+    return JAX_DATA_DIR
+
+
+def cache_dir(name: str) -> pathlib.Path:
+    """A directory of what the port writes (``build/<name>``, listed in
+    .gitignore); ``SLAM_CACHE_DIR`` moves their common root."""
+    return pathlib.Path(os.environ.get("SLAM_CACHE_DIR", REPO_ROOT / "build")) / name
 
 
 def build_dir() -> pathlib.Path:
@@ -41,7 +50,23 @@ def coverage_cache_dir() -> pathlib.Path:
     """Where the port writes the coverage sets it builds, under the JAX
     package's file names (listed in .gitignore). ``data_dir()`` is only
     read."""
-    return REPO_ROOT / "build" / "slam_coverage"
+    return cache_dir("slam_coverage")
+
+
+def preseed_dir() -> pathlib.Path:
+    """Where the port saves its preseed stores (``data_dir()`` is only
+    read)."""
+    return cache_dir("slam_preseed")
+
+
+def explore_dir() -> pathlib.Path:
+    """Where the port's candidate database ``cg_gates.h5`` lives."""
+    return cache_dir("slam_explore")
+
+
+def transpile_dir() -> pathlib.Path:
+    """Where the port's transpile tools write their results."""
+    return cache_dir("slam_transpile")
 
 
 def _env(name: str, default, cast):

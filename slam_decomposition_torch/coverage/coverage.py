@@ -330,6 +330,32 @@ def _layer_tables(layers, device):
     return t(A_in), t(A_eq), t(tol_in), t(tol_eq), t(onehot)
 
 
+def _index_of_reps(reps: torch.Tensor, tables) -> torch.Tensor:
+    """The cheapest covering layer of each target from its monodromy
+    representatives (n, 2, 3): its index, -1 for the identity class, -2
+    where no layer covers it."""
+    A_in, A_eq, tol_in, tol_eq, onehot = tables
+    vals = A_in[:, :, 0] + torch.einsum("nrk,sjk->nrsj", reps, A_in[:, :, 1:])
+    ok = (vals >= -tol_in).all(-1)
+    evals = A_eq[:, :, 0] + torch.einsum("nrk,sjk->nrsj", reps, A_eq[:, :, 1:])
+    ok &= (evals.abs() <= tol_eq).all(-1)
+    member = (ok.any(1).to(torch.float64) @ onehot) > 0  # (n, layers)
+    first = torch.argmax(member.to(torch.int8), dim=1)
+    covered = member.any(dim=1)
+    is_id = (reps.abs() < IDENTITY_TOL).all(-1).any(-1)
+    return torch.where(is_id, -1, torch.where(covered, first, -2))
+
+
+def _layers(coverage):
+    return sorted([c for c in coverage if c.cost > 0], key=lambda c: c.cost)
+
+
+def _checked(idx: np.ndarray) -> np.ndarray:
+    if (idx == -2).any():
+        raise ValueError("no coverage polytope contains some targets")
+    return idx
+
+
 def _layer_index(coverage, targets, device):
     """(index into the layers of the cheapest covering layer, -1 for the
     identity class; (N,) int64 numpy) and the layers (every entry of cost >
@@ -338,26 +364,30 @@ def _layer_index(coverage, targets, device):
     targets = torch.as_tensor(targets)
     if targets.ndim == 2:
         targets = targets[None]
-    layers = sorted([c for c in coverage if c.cost > 0], key=lambda c: c.cost)
-    A_in, A_eq, tol_in, tol_eq, onehot = _layer_tables(layers, device)
+    layers = _layers(coverage)
+    tables = _layer_tables(layers, device)
     out = []
     for s in range(0, targets.shape[0], KS_CHUNK):
         U = targets[s : s + KS_CHUNK].to(device=device, dtype=torch.complex128)
         reps = weyl.monodromy_coords(U)[..., :3]  # (n, 2, 3)
-        vals = A_in[:, :, 0] + torch.einsum("nrk,sjk->nrsj", reps, A_in[:, :, 1:])
-        ok = (vals >= -tol_in).all(-1)
-        evals = A_eq[:, :, 0] + torch.einsum("nrk,sjk->nrsj", reps, A_eq[:, :, 1:])
-        ok &= (evals.abs() <= tol_eq).all(-1)
-        member = (ok.any(1).to(torch.float64) @ onehot) > 0  # (n, layers)
-        first = torch.argmax(member.to(torch.int8), dim=1)
-        covered = member.any(dim=1)
-        is_id = (reps.abs() < IDENTITY_TOL).all(-1).any(-1)
-        idx = torch.where(is_id, -1, torch.where(covered, first, -2))
-        out.append(idx.cpu().numpy())
-    idx = np.concatenate(out)
-    if (idx == -2).any():
-        raise ValueError("no coverage polytope contains some targets")
-    return idx, layers
+        out.append(_index_of_reps(reps, tables).cpu().numpy())
+    return _checked(np.concatenate(out)), layers
+
+
+def monodromy_ks_of_reps(coverage, reps, device=DEFAULT_DEVICE) -> np.ndarray:
+    """``monodromy_ks_batch`` from the targets' monodromy representatives
+    ((N, 2, 3) or ``monodromy_reps_float``'s (N, 2, 4)), so that one batch's
+    coordinates serve many coverage sets. Runs on ``device`` (the card
+    unless the caller names another)."""
+    device = resolve_device(device)
+    layers = _layers(coverage)
+    tables = _layer_tables(layers, device)
+    reps = torch.as_tensor(np.asarray(reps)[..., :3], dtype=torch.float64, device=device)
+    idx = _checked(np.concatenate([
+        _index_of_reps(reps[s : s + KS_CHUNK], tables).cpu().numpy() for s in range(0, reps.shape[0], KS_CHUNK)
+    ]))
+    ks_of_layer = np.array([len(cp.operations) for cp in layers])
+    return np.where(idx < 0, 0, ks_of_layer[np.maximum(idx, 0)])
 
 
 def monodromy_ks_batch(coverage, targets, device=None) -> np.ndarray:

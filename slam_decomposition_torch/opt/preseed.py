@@ -1,28 +1,29 @@
 """Preseeding store: solved decompositions keyed by Weyl coordinate (JAX
-opt/preseed.py). Host numpy arrays pickled under the data directory by a
-hash of the store's key; the nearest stored neighbour of each target's
-coordinate, found with a KD-tree, seeds restart 0 of a later solve.
+opt/preseed.py). Host numpy arrays pickled by a hash of the store's key
+under ``config.preseed_dir()`` (``build/slam_preseed``); a store the JAX
+package saved in its data directory is read there, never written. The
+nearest stored neighbour of each target's coordinate, found with a KD-tree,
+seeds restart 0 of a later solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-import pickle
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 from scipy.spatial import cKDTree
 
-from slam_decomposition_torch.config import data_dir
+from slam_decomposition_torch.config import data_dir, preseed_dir
+from slam_decomposition_torch.utils.persist import filename_encode, pickle_load, pickle_save
 
 _FIELDS = ("coords", "params", "cycles", "losses")
 
 
 def store_path(key: str) -> Path:
-    """The store's file: the data directory, by the sha1 of the key."""
-    return data_dir() / f"{hashlib.sha1(key.encode()).hexdigest()}.pkl"
+    """The store's file: ``preseed_dir()``, by the sha1 of the key."""
+    return filename_encode(key, preseed_dir())
 
 
 @dataclasses.dataclass
@@ -35,21 +36,15 @@ class PreseedStore:
 
     @classmethod
     def load(cls, key: str) -> "PreseedStore":
-        """The saved store of ``key``, or an empty one."""
-        try:
-            with open(store_path(key), "rb") as f:
-                data = pickle.load(f)
-        except (OSError, EOFError, pickle.PickleError):
-            data = None
+        """The saved store of ``key`` (the port's own, else one in the data
+        directory), or an empty one."""
+        data = pickle_load(store_path(key)) or pickle_load(filename_encode(key, data_dir()))
         if not data:
             return cls(key, np.zeros((0, 3)), np.zeros((0, 0)), np.zeros(0, int), np.zeros(0))
         return cls(key, **{k: data[k] for k in _FIELDS})
 
     def save(self) -> None:
-        path = store_path(self.key)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        with open(path, "wb") as f:
-            pickle.dump({k: getattr(self, k) for k in _FIELDS}, f)
+        pickle_save(store_path(self.key), {k: getattr(self, k) for k in _FIELDS})
 
     def __len__(self):
         return len(self.coords)

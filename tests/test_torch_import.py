@@ -51,3 +51,20 @@ def test_driven_modules_are_checked():
         "slam_decomposition_torch.utils.visualize",
     }
     assert driven <= set(MODULES)
+
+
+def test_transpilation_path_modules_are_checked():
+    """The speed-limit transpilation path's modules are among those imported
+    without jax above."""
+    path = {
+        "slam_decomposition_torch.utils.persist",
+        "slam_decomposition_torch.explore.speed_limit",
+        "slam_decomposition_torch.explore.candidates",
+        "slam_decomposition_torch.explore.family",
+        "slam_decomposition_torch.explore.scaling",
+        "slam_decomposition_torch.explore.winners",
+        "slam_decomposition_torch.transpile.route",
+        "slam_decomposition_torch.transpile.syc_decompose",
+        "slam_decomposition_torch.tools.headline",
+    }
+    assert path <= set(MODULES)

@@ -179,3 +179,22 @@ def test_batch_synth_on_the_card(dev):
     for (steps, _), u in zip(res, U):
         V = kak.steps_to_matrix(steps)
         assert 1.0 - abs(np.trace(V.conj().T @ u)) / 4.0 <= 1e-10
+
+
+def test_fit_substituted_1q_on_the_kernels(dev):
+    """The SLAM pass's 1Q fit on the card: each structure group of winner
+    applications is one launch of each chain kernel, and with every block
+    fitted the circuit keeps its unitary."""
+    from slam_decomposition_torch.transpile import library
+    from slam_decomposition_torch.transpile.passes import pass_manager_slam
+
+    c = library.qft(5)
+    ck.reset_launch_counts()
+    stats = []
+    out, m = pass_manager_slam(c, duration_1q=0.25, fit_1q=True, device=dev, stats=stats)
+    counts = ck.launch_counts()
+    assert stats and all(v == len(stats) for v in counts.values()), (counts, stats)
+    assert all(s["path"] == "kernels" for s in stats)
+    if all(s["fitted"] == s["blocks"] for s in stats):
+        U, V = c.to_matrix(), out.to_matrix()
+        assert 1 - abs(np.trace(V.conj().T @ U)) / U.shape[0] <= 1e-9

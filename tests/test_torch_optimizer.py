@@ -169,6 +169,7 @@ def test_preseeding_end_to_end(tmp_path, monkeypatch):
     """Solved decompositions persist and seed a later run on the same
     coordinates."""
     monkeypatch.setenv("SLAM_DATA_DIR", str(tmp_path))
+    monkeypatch.setenv("SLAM_CACHE_DIR", str(tmp_path))
     targets = haar_sample(3, seed=21)
     mk = lambda: _opt(  # noqa: E731
         _basis(gates.SQISWAP), spanning_range=[3], training_restarts=3, preseed=True, preseed_key="t"
@@ -212,7 +213,7 @@ if sys.argv[1] == "solve":
 def test_preseed_default_key_survives_restart(tmp_path):
     """The default store key comes from the template's content, not from
     object identity, so seeds saved in one process are found by the next."""
-    env = dict(os.environ, SLAM_DATA_DIR=str(tmp_path))
+    env = dict(os.environ, SLAM_DATA_DIR=str(tmp_path), SLAM_CACHE_DIR=str(tmp_path))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = lambda mode: subprocess.run(  # noqa: E731
         [sys.executable, "-c", _PRESEED_CHILD, mode], env=env, cwd=root, capture_output=True, text=True, check=True
@@ -221,6 +222,36 @@ def test_preseed_default_key_survives_restart(tmp_path):
     assert out1[1] == out2[1]  # the same key in both processes
     assert int(out1[3]) == 0 and int(out1[5]) == 2
     assert int(out2[3]) == 2  # the second process sees the first's solutions
+
+
+def test_preseed_store_never_writes_the_data_directory(tmp_path, monkeypatch):
+    """The store is saved under the build directory, and the data directory
+    (here a copy of the JAX package's) is only read: a solve with
+    ``preseed=True`` adds no file to it, and a second load finds the store
+    where it was saved."""
+    import pathlib
+    import shutil
+
+    from slam_decomposition_torch.opt import preseed
+
+    data, build = tmp_path / "data", tmp_path / "build"
+    shutil.copytree(pathlib.Path(__file__).resolve().parents[1] / "slam_decomposition_tpu" / "data", data)
+    monkeypatch.setenv("SLAM_DATA_DIR", str(data))
+    monkeypatch.setenv("SLAM_CACHE_DIR", str(build))
+    before = sorted(p.name for p in data.iterdir())
+    opt = TemplateOptimizer(
+        _basis(gates.SQISWAP), spanning_range=[3], training_restarts=3, override_fail=True, preseed=True, device="cpu"
+    )
+    opt.approximate_from_distribution(haar_sample(2, seed=5))
+    assert sorted(p.name for p in data.iterdir()) == before
+    path = preseed.store_path(opt.preseed_store.key)
+    assert path.parent == build / "slam_preseed" and path.exists()
+    assert len(PreseedStore.load(opt.preseed_store.key)) == 2
+    # a store found only in the data directory is read there
+    moved = data / path.name
+    shutil.move(path, moved)
+    assert len(PreseedStore.load(opt.preseed_store.key)) == 2
+    assert not path.exists()
 
 
 @pytest.mark.parametrize("obj", ["square_reduced", "makhlin_functional"])
