@@ -71,18 +71,18 @@ Phases, one line each (more for the build report):
      target's range (its depth to 12) with every depth 2..12 on the kernels,
      the chain through both solver paths at depth 8 (1000 depth-8 targets)
      and depth 10 (500 targets of depth 9 or 10), and the kernels against
-     their plain versions at the lanes the depth-7..12 runs launched (a
-     chunk's at most);
+     their plain versions at the lanes the depth-8, 10 and 12 runs launched
+     (a chunk's at most);
   9. the sixteenth-iSwap basis, conversion_gain_gate(0, 0, 0, pi/32, 1),
      whose templates run to depth 24, as phase 7 (SIXTEENTH_ISWAP): four in
      five targets at depth 13 or more, on the depth-generic programs; the
      seconds the optimizer spends drawing starts on the host; the chain
      through both solver paths at depth 13 (1000 depth-13 targets) and depth
      16 (500 targets of depth 15 or 16), and the kernels against their
-     plain versions at the lanes the depth-13, 16, 19 and 22 runs launched;
+     plain versions at the lanes the depth-13 and 22 runs launched;
  10. the coverage engine (host code; coordinates on the card): (a) the
-     sqiSwap, quarter- and eighth-iSwap sets built without their caches,
-     each equal row for row to the JAX package's cached pickle (operations,
+     sqiSwap and quarter-iSwap sets built without their caches, each
+     equal row for row to the JAX package's cached pickle (operations,
      cost, every convex subpolytope's exact rows and name), each build's
      seconds printed, and the main path's depth histogram over the built
      sqiSwap set; (b) the parallel-drive basis conversion_gain_gate(0, 0,
@@ -100,7 +100,7 @@ Phases, one line each (more for the build report):
      the path of every depth is printed), every run at exactly one launch of
      each kernel per chunk, and the kernels against their plain versions at
      these runs' lanes (K = 1 at 5000 / 1000, the CNOT chain's K = 3 at
-     50000 / 10000, K = 4..48 and 79 at 2500 / 500) with phase 3's limits;
+     50000 / 10000, K = 4..16 and 79 at 2500 / 500) with phase 3's limits;
  12. general solver on the card: the reduced and Makhlin objectives at depth
      3 on 10000 Haar targets, L-BFGS on the CNOT basis (2000 targets x 5
      restarts), a free conversion-gain gate under bounds reaching CNOT at
@@ -114,20 +114,20 @@ Phases, one line each (more for the build report):
      doubling against the running product (both timed), the device kernels
      of one driven evaluation, Adam step and LM iteration at 32 lanes
      (torch.profiler), and sample_smush_coords on the iSwap cycle at k = 1,
-     2, 3 (3000 samples each, timed); (b) improved_cx at seeds 0, 1, 2, 32
+     2, 3 (3000 samples each, timed); (b) improved_cx at seed 0, 32
      restarts: certified <= 1e-10 on the general solver, its locals
      rebuilding CNOT within trace infidelity 1e-10; (c) improved_swap(
      exact=True), 16 restarts: certified on the chain kernels at K = 3, one
      launch of each, then the kernels against their plain versions at those
      lanes with phase 3's limits; (d) the golden improved_swap_2pulse.json
      through evaluate_drive_sequence, < 1e-10; (e) improved_swap_two_pulse
-     at seed 0, certified and rebuilding SWAP, and improved_swap()'s [1.0,
-     0.5] plan (its loss printed, ~1e-5 by design); (f) VSWAP from
+     at seed 0, certified and rebuilding SWAP (improved_swap()'s [1.0, 0.5]
+     plan, ~1e-5 by design, is phase 15's m = 2 class fit); (f) VSWAP from
      hamiltonian_ansatz(circulator_u, 7) through TemplateOptimizer, loss <
      1e-8; (g) GRAPE on CNOT: the hs functional (8 restarts x 300
      iterations, 8 slices, printed) and the li functional (8 x 400, 16
      slices: value < 1e-3, CNOT's coordinates within 0.05); (h)
-     extend_coverage(save=False) of iSwap, sqiSwap, CNOT and B: every row's
+     extend_coverage(save=False) of iSwap and B: every row's
      cnot / swap / b flags equal to slam_decomposition_tpu/data/
      extended_results.json, the exact base volume within 1e-9, the extended
      volume within 0.02 or the JAX package's own spread over three seeds
@@ -146,10 +146,29 @@ Phases, one line each (more for the build report):
      every fitted block rebuilding its block's unitary within 1e-9, the
      wall clock of both runs; (d) the headline rows (tools/headline.py):
      SWAP 2.5 -> 2.25, VQE(Linear)-16 routed on the 4x4 grid at seed 0
-     25.75 -> 21.5, and the protocol cut to 1 x 2 route seeds and 50 Haar
+     25.75 -> 21.5, and the protocol cut to 1 x 1 route seed and 20 Haar
      targets equal to the JAX package's values;
- 15. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 14) and the whole run's seconds, then the device
+ 15. the parallel-drive pass with its driven fit, counted like the main
+     path: (a) transpile.passes.pass_manager_optimized_sqiswap(qft(64),
+     duration_1q=0.25, fit_1q=True) cold and warm: the blocks by path (exact
+     path, class fit per pulse count m, the exact 3-segment fallback,
+     placeholders) against the port's own CPU run of the same call (PD_SPLIT:
+     the exact path equal, each class fit no fewer than the CPU's less 1% of
+     its group, the placeholders no more than the CPU's plus 3% of its
+     fallback blocks), every fitted block rebuilding its
+     block's unitary within 1e-9, the duration analysis, the wall clock and
+     each stage's seconds, the fallback at one launch of each kernel and the
+     class fits' general-solver calls, the peak device memory; (b) each
+     kernel against its plain version on the fallback's chain (three
+     zero-drive sqiSwap-time pulses, K = 3) at its lanes (fallback blocks x
+     16) with phase 3's limits; (c) QV-16 routed on the 4x4 grid at seed 0,
+     once, with (a)'s checks (class fits at m = 1 and 2); (d)
+     tools/certify_frontier.certify_row("B", 1, 32): its certified fraction
+     beside the JAX package's 0.96 at n = 100, and every certified loss
+     equal to the CPU's f64 Makhlin functional of the returned x within
+     1e-12;
+ 16. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 15) and the whole run's seconds, then the device
      line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
@@ -255,10 +274,12 @@ def depth_deep():
 
 def depth_parity():
     """The depths whose kernels are held to their plain versions at the
-    depth runs' lanes: all but 64 (of the deep ones, the last only: the
-    plain versions of a deep chain take tens of seconds; K = 64 is held by
-    tests/test_torch_kernels.py on the card)."""
-    return tuple(k for k, path in depth_deep() if path == "kernels" and k != 64)
+    depth runs' lanes: 4..16 and kMaxK (the plain versions of a deep chain
+    take tens of seconds; 20, 24, 32 and 48 were cut to make room for phase
+    15, and K = 64 is held by tests/test_torch_kernels.py on the card)."""
+    from slam_decomposition_torch.ops.chain_kernels import KERNEL_KS
+
+    return tuple(k for k, path in depth_deep() if path == "kernels" and (k <= 16 or k == KERNEL_KS[-1]))
 
 
 class Basis(NamedTuple):
@@ -288,13 +309,15 @@ QUARTER_ISWAP = Basis("frac", "quarter-iSwap", (0.0, math.pi / 8), (2, 3, 4, 5, 
                       {2: 756, 3: 18734, 4: 76556, 5: 3937, 6: 17}, 0.9999, ((5, 1000, 5),), (5, 6))
 EIGHTH_ISWAP = Basis("eighth", "eighth-iSwap", (0.0, math.pi / 16), tuple(range(2, 13)),
                      {2: 3, 3: 88, 4: 865, 5: 4460, 6: 14074, 7: 30125, 8: 46431, 9: 3554, 10: 383, 11: 17},
-                     0.9999, ((8, 1000, 8), (10, 500, 9)), tuple(range(7, 13)))
+                     0.9999, ((8, 1000, 8), (10, 500, 9)), (8, 10, 12))
 # depths 4..22 (the JAX package's too, tests/test_torch_sixteenth_iswap.py);
-# parity at the first generic depth, the busiest, and two small late runs
+# parity at the first generic depth, at 81920 lanes, and a small late run
+# (16 and 19 cut, as 7, 9, 11 of the eighth-iSwap's, to make room for phase
+# 15: phase 11 holds every depth 4..16 at its own lanes)
 SIXTEENTH_ISWAP = Basis("sixteenth", "sixteenth-iSwap", (0.0, math.pi / 32), tuple(range(2, 25)),
                         {4: 4, 5: 23, 6: 64, 7: 252, 8: 613, 9: 1540, 10: 2920, 11: 5354, 12: 8720, 13: 12870,
                          14: 17255, 15: 21618, 16: 24813, 17: 2555, 18: 999, 19: 314, 20: 69, 21: 15, 22: 2},
-                        0.9999, ((13, 1000, 13), (16, 500, 15)), (13, 16, 19, 22))
+                        0.9999, ((13, 1000, 13), (16, 500, 15)), (13, 22))
 # both drives on: no cached coverage set exists, so phase_coverage builds it
 # first (4 entries: the identity and depths 1..3); its depths and expected
 # cost are the JAX package's (tests/test_torch_coverage.py)
@@ -302,17 +325,21 @@ PARALLEL_DRIVE = Basis("parallel", "parallel-drive", (math.pi / 8, math.pi / 4),
                        0.9999, ((3, 1000, 3),), (2, 3))
 PARALLEL_EXPECTED_COST, EXPECTED_COST_ATOL = 2.041729136984176, 1e-12
 # the sets phase_coverage builds without their caches and holds to them
-# (quarter- and eighth-iSwap: the bases of phases 7 and 8)
-COVERAGE_BUILDS = (("sqiswap", None), ("quarter-iSwap", (0.0, math.pi / 8)), ("eighth-iSwap", (0.0, math.pi / 16)))
+# (quarter-iSwap: the basis of phase 7; the eighth-iSwap build, 22.5 s of
+# the same code, cut to make room for phase 15)
+COVERAGE_BUILDS = (("sqiswap", None), ("quarter-iSwap", (0.0, math.pi / 8)))
 # the chain's restarts through both paths (tools/optimizer_readings.ranking_agreement)
 RANK_LANES_MIN, RANK_SINGLE_MIN, RANK_WINNER_MIN = 0.999, 0.99, 0.999
 # the driven path (phase 13): the card's f64 against the CPU's, the
 # certification bars of the pulse solves, and the extended-coverage gates
 DRIVEN_PARITY_ATOL = 1e-12
 DRIVEN_CERT, VSWAP_LOSS_MAX = 1e-10, 1e-8
-DRIVEN_SEEDS, DRIVEN_RESTARTS, SWAP_EXACT_RESTARTS = (0, 1, 2), 32, 16
+# improved_cx at seed 0 (cut from seeds 0, 1, 2 to make room for phase 15)
+DRIVEN_SEEDS, DRIVEN_RESTARTS, SWAP_EXACT_RESTARTS = (0,), 32, 16
 SMUSH_SAMPLES, SMUSH_SAMPLE_KS = 3000, (1, 2, 3)
-EXTENDED_GATES = ("iSwap", "sqiSwap", "CNOT", "B")
+# iSwap (its k=2 SWAP flag hangs on the JAX draws) and B (the cheapest), cut
+# from four gates to make room for phase 15
+EXTENDED_GATES = ("iSwap", "B")
 # an extended volume's limit against extended_results.json: 0.02, or the JAX
 # package's own spread over the seeds 7, 8, 9 where wider: CNOT k=2 reads
 # 0.87186 / 0.932355 / 0.935165 (scripts/jax_extended_spread.py on the CPU;
@@ -333,18 +360,44 @@ SLAM_GATES = {"u": 2984, "winner2q": 2828, "u1q": 2736}
 SLAM_JAX_FITS = {2: (830, 1350), 4: (32, 32)}  # applications: (fitted, blocks)
 SLAM_FIT_SLACK = 0.01  # the card may fit fewer than the JAX package by 1% of a group's blocks
 SLAM_BLOCK_DIST = 1e-9  # 1 - |tr(V^dag U)| / 4 of every fitted block
-# the headline protocol cut to 1 x 2 route seeds and 50 Haar targets
-# (slam_decomposition_torch/tools/headline.py), the JAX package's values
-# from scripts/headline_benchmarks.py main(16, 1, 2, 50) on the CPU
-HEADLINE_REDUCED = (16, 1, 2, 50)
+# the parallel-drive pass with its driven fit (phase 15):
+# transpile.passes.pass_manager_optimized_sqiswap(..., fit_1q=True) on QFT-64
+# and on QV-16 routed on the 4x4 grid at seed 0. The split of the blocks by
+# path in the port's own CPU run of the same calls (PERF.md section 6):
+# exact path, then per pulse count m (fitted, blocks) of the class fit, then
+# (fitted, blocks) of the exact 3-segment fallback
+PD_D1Q = 0.25
+PD_SPLIT = {
+    "qft64": {"exact": 253, "class_fit": {1: (1249, 1763), 2: (0, 32)}, "fallback": (484, 546)},
+    "qv16": {"exact": 1, "class_fit": {1: (102, 102), 2: (18, 109)}, "fallback": (91, 91)},
+}
+# the card may class-fit fewer blocks than the CPU by 1% of a group, and keep
+# more placeholders after the fallback by 3% of the CPU's fallback blocks: the
+# fallback's starts follow the rescue's draws, whose number follows the class
+# fit's failures, so the card draws other starts than the CPU there, and a
+# share of ~0.88 certified over ~546 blocks spreads by ~1.4% of them (one
+# standard deviation)
+PD_FIT_SLACK, PD_FALLBACK_SLACK = 0.01, 0.03
+PD_BLOCK_DIST = 1e-9  # fit_substituted_pd's threshold: 1 - |tr(V^dag U)| / 4 of every fitted block
+PD_RESTARTS = 16  # fit_substituted_pd's default
+# certify_frontier.certify_row on B k = 1 at 32 targets, beside the JAX
+# package's row (slam_decomposition_tpu/data/frontier_certification.json:
+# 96 of 100 certified)
+FRONTIER_ROW, FRONTIER_JAX_FRAC = ("B", 1, 32), 0.96
+FRONTIER_RECOMPUTE_ATOL = 1e-12  # a certified loss against the CPU's f64 Makhlin functional of its x
+# the headline protocol cut to 1 x 1 route seed and 20 Haar targets
+# (slam_decomposition_torch/tools/headline.py; cut from 1 x 2 and 50 to make
+# room for phase 15), the JAX package's values from
+# scripts/headline_benchmarks.py main(16, 1, 1, 20) on the CPU
+HEADLINE_REDUCED = (16, 1, 1, 20)
 HEADLINE_JAX = {
     "SWAP": {"basic": 2.5, "optimized": 2.25},
-    "haar_avg": {"basic": 1.915, "optimized": 1.57},
-    "QV": {"basic": 103.0, "optimized": 86.25, "basic_ref_metric": 103.0, "optimized_ref_metric": 85.75},
-    "VQE(Linear)": {"basic": 25.75, "optimized": 21.499999999999996, "basic_ref_metric": 25.75,
-                    "optimized_ref_metric": 21.499999999999996},
-    "VQE(Full)": {"basic": 247.75, "optimized": 212.5, "basic_ref_metric": 247.75, "optimized_ref_metric": 212.5},
-    "QFT": {"basic": 128.5, "optimized": 85.400390625, "basic_ref_metric": 128.5, "optimized_ref_metric": 84.9140625},
+    "haar_avg": {"basic": 2.0125, "optimized": 1.6625},
+    "QV": {"basic": 125.5, "optimized": 108.0, "basic_ref_metric": 125.5, "optimized_ref_metric": 107.75},
+    "VQE(Linear)": {"basic": 25.75, "optimized": 21.5, "basic_ref_metric": 25.75, "optimized_ref_metric": 21.5},
+    "VQE(Full)": {"basic": 263.5, "optimized": 226.75, "basic_ref_metric": 263.5, "optimized_ref_metric": 226.75},
+    "QFT": {"basic": 135.25, "optimized": 104.7421875, "basic_ref_metric": 135.25,
+            "optimized_ref_metric": 104.7421875},
 }
 
 
@@ -1010,8 +1063,8 @@ def same_coverage(built, cached):
 
 def phase_coverage(card, counted, stats):
     """The coverage engine on the card's host, coordinates on the card:
-    (a) the sqiSwap, quarter- and eighth-iSwap sets built without their
-    caches, each equal row for row to the JAX package's cached pickle, and
+    (a) the sqiSwap and quarter-iSwap sets built without their caches, each
+    equal row for row to the JAX package's cached pickle, and
     the main path's depths over the built sqiSwap set; (b) the
     parallel-drive basis, which has no cache: its set built from nothing,
     its expected cost, then phase_basis over it, and the coverage-backed
@@ -1070,7 +1123,7 @@ def phase_coverage(card, counted, stats):
           f"in {time.perf_counter() - t0:.3f} s")
     check(total == float(ks.sum()), f"template cost {total} != {int(ks.sum())}")
     wall = time.perf_counter() - t_phase
-    print(f"[coverage] {card}: phase {wall:.1f} s, of which the four builds {build_s:.1f} s on the host "
+    print(f"[coverage] {card}: phase {wall:.1f} s, of which the {len(COVERAGE_BUILDS) + 1} builds {build_s:.1f} s on the host "
           f"({build_s / wall:.1%})")
 
 
@@ -1368,15 +1421,13 @@ def driven_solves(card, counted, stats):
     print(f"[driven] {card}: (d) golden improved_swap_2pulse.json through evaluate_drive_sequence: trace infidelity "
           f"{golden:.3e} (need < {DRIVEN_CERT:g})")
     check(golden < DRIVEN_CERT, f"golden artifact {golden}")
-    # (e) the two-pulse SWAP solved fresh, and the [1.0, 0.5] plan (~1e-5 by design)
+    # (e) the two-pulse SWAP solved fresh
     (x, loss, locs), wall, launches, general, peak = counted(lambda: traj.improved_swap_two_pulse(seed=0))
     rebuilt = _trace_infidelity(swap, traj.evaluate_drive_sequence(x, [1.0, 1.0], np.pi / 2, 0.0, 4, locs))
     line("e", "improved_swap_two_pulse seed 0", wall, launches, general, peak,
          f"loss {loss:.3e}, locals rebuild SWAP at {rebuilt:.3e} (need <= {DRIVEN_CERT:g}), path general, ")
     check(loss <= DRIVEN_CERT and rebuilt <= DRIVEN_CERT, f"improved_swap_two_pulse: loss {loss}, rebuilt {rebuilt}")
     check(all(v == 0 for v in launches.values()) and general in (1, 2), f"two-pulse: {launches}, {general}")
-    (x, loss, _), wall, launches, general, peak = counted(lambda: traj.improved_swap(seed=0))
-    line("e", "improved_swap() [1.0, 0.5] seed 0 (not gated)", wall, launches, general, peak, f"loss {loss:.3e}, ")
     # (f) VSWAP from the circulator's own parameters
     ansatz = hamiltonian_ansatz(
         lambda p1, p2, p3, g1, g2, g3, t: ham.circulator_u(p1, p2, p3, g1, g2, g3, t=t), 7,
@@ -1415,7 +1466,7 @@ def driven_oct(card, counted):
 
 
 def driven_coverage(card, counted):
-    """13 (h): extend_coverage of four named gates against
+    """13 (h): extend_coverage of the named gates EXTENDED_GATES against
     extended_results.json."""
     from slam_decomposition_torch.config import data_dir
     from slam_decomposition_torch.explore.smush_volume import extend_coverage
@@ -1543,34 +1594,165 @@ def phase_slam(card, counted, stats):
           f"(d) {t4 - t3:.1f}")
 
 
+def pd_split(stats):
+    """(exact blocks, {m: (fitted, blocks)}, (fitted, blocks) of the
+    fallback) of one fit_substituted_pd run's records."""
+    exact = sum(r["blocks"] for r in stats if r["stage"] == "exact")
+    fits = {r["m"]: (r["fitted"], r["blocks"]) for r in stats if r["stage"] == "class_fit"}
+    fb = [(r["fitted"], r["blocks"]) for r in stats if r["stage"] == "fallback"]
+    return exact, fits, fb[0] if fb else (0, 0)
+
+
+def pd_fit_checks(card, label, stats, blocks, launches, general, want):
+    """One fit_substituted_pd run against the CPU's split ``want``: the exact
+    path equal, each class-fit group's blocks equal and its fitted blocks no
+    fewer than the CPU's less PD_FIT_SLACK of the group, every block that
+    does not fit there in the fallback, placeholders no more than the CPU's
+    plus PD_FALLBACK_SLACK of its fallback blocks, the fallback on the chain
+    kernels at one launch of each, one general-solver call per class-fit
+    group and one more per group with failures (its rescue), and every
+    fitted block rebuilding its block's unitary within PD_BLOCK_DIST.
+    Returns the fallback's blocks and the worst distance."""
+    exact, fits, (fb_fit, fb_blocks) = pd_split(stats)
+    w_exact, w_fits, w_fb = want["exact"], want["class_fit"], want["fallback"]
+    worst = 0.0
+    for r in stats:
+        for i, sub in r["circuits"].items():
+            U, V = blocks[i].unitary, sub.to_matrix()
+            worst = max(worst, 1 - abs(np.trace(V.conj().T @ U)) / 4)
+    placeholders = fb_blocks - fb_fit
+    print(f"[pd] {card}: {label}: {len(blocks)} blocks: exact path {exact} (CPU {w_exact}), "
+          + ", ".join(f"class fit m={m} {f} of {b} (CPU {w_fits.get(m)})" for m, (f, b) in sorted(fits.items()))
+          + f", fallback {fb_fit} of {fb_blocks} (CPU {tuple(w_fb)}), placeholders {placeholders}; every fitted block "
+          f"within {worst:.3e} of its unitary (need <= {PD_BLOCK_DIST:g})")
+    for r in stats:
+        extra = f", stages {{{', '.join(f'{k}: {v:.3f}' for k, v in r['stage_seconds'].items())}}}" \
+            if "stage_seconds" in r else ""
+        rescue = f" ({r['failed']} failed the polish, {r['rescued']} of them rescued)" if "failed" in r else ""
+        print(f"[pd] {card}: {label}: {r['stage']}{' m=' + str(r['m']) if 'm' in r else ''}: {r['blocks']} blocks, "
+              f"fitted {r['fitted']}{rescue}, path {r['path']}, {r['seconds']:.3f} s{extra}")
+    check(exact == w_exact, f"{label}: {exact} blocks on the exact path, the CPU {w_exact}")
+    check(sorted(fits) == sorted(w_fits), f"{label}: class-fit groups {sorted(fits)}, the CPU {sorted(w_fits)}")
+    for m, (f, b) in fits.items():
+        least = math.ceil(w_fits[m][0] - PD_FIT_SLACK * w_fits[m][1])
+        check(b == w_fits[m][1] and f >= least, f"{label}: m={m} fitted {f} of {b}, need >= {least} of {w_fits[m][1]}")
+    check(fb_blocks == sum(b - f for f, b in fits.values()), f"{label}: fallback blocks {fb_blocks}")
+    most = math.floor(w_fb[1] - w_fb[0] + PD_FALLBACK_SLACK * w_fb[1])
+    check(placeholders <= most, f"{label}: {placeholders} placeholders, need <= {most} (the CPU {w_fb[1] - w_fb[0]})")
+    check(all(r["path"] == "general" for r in stats if r["stage"] == "class_fit"), f"{label}: a class fit off the general path")
+    want_general = sum(1 + (r["failed"] > 0) for r in stats if r["stage"] == "class_fit")
+    check_counts(f"{label} fit", launches, general, 1 if fb_blocks else 0, want_general)
+    check(worst <= PD_BLOCK_DIST, f"{label}: a fitted block is {worst:.3e} from its unitary (limit {PD_BLOCK_DIST:g})")
+    return fb_blocks, worst
+
+
+def phase_pd_fit(card, counted, stats):
+    """15. The parallel-drive pass with its driven fit: (a) QFT-64 through
+    pass_manager_optimized_sqiswap(fit_1q=True) cold and warm, counted; (b)
+    the kernels against their plain versions on the fallback's chain at its
+    lanes; (c) QV-16 routed on the 4x4 grid at seed 0, once, counted; (d)
+    certify_frontier.certify_row on B k = 1."""
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models.trajectory import _eval_np
+    from slam_decomposition_torch.explore.smush_volume import NAMED_GATES, _smush_eval
+    from slam_decomposition_torch.opt.costs import makhlin_functional_cost
+    from slam_decomposition_torch.tools import certify_frontier
+    from slam_decomposition_torch.transpile import library
+    from slam_decomposition_torch.transpile.consolidate import consolidate_2q_blocks
+    from slam_decomposition_torch.transpile.ir import unroll_3q_or_more
+    from slam_decomposition_torch.transpile.passes import pass_manager_optimized_sqiswap
+    from slam_decomposition_torch.transpile.route import grid_coupling, route
+
+    def run(label, circ, tag):
+        blocks = consolidate_2q_blocks(unroll_3q_or_more(circ))
+        fit_stats = []
+        (out, m), wall, launches, general, peak = counted(
+            lambda: pass_manager_optimized_sqiswap(circ, duration_1q=PD_D1Q, fit_1q=True, device="cuda",
+                                                   stats=fit_stats))
+        print(f"[pd] {card}: {label}: pass_manager_optimized_sqiswap(duration_1q={PD_D1Q}, fit_1q=True) {wall:.3f} s "
+              f"(the fit {sum(r['seconds'] for r in fit_stats):.3f} s of it), peak device memory {peak:.0f} MiB: "
+              f"duration {m['duration']} (ref metric {m['duration_ref_metric']}), gates {m['gate_counts']}, depth "
+              f"{m['depth']}; fallback launches {launches}, general-solver calls {general}")
+        fb, _ = pd_fit_checks(card, label, fit_stats, blocks, launches, general, PD_SPLIT[tag])
+        return wall, fb
+
+    t0 = time.perf_counter()
+    qft = library.qft(QFT_Q)
+    walls = {}
+    for run_name in ("cold", "warm"):
+        walls[run_name], fb = run(f"QFT-{QFT_Q} {run_name}", qft, "qft64")
+    t1 = time.perf_counter()
+    zero = np.zeros(4)
+    pd_sq = gates._const_gate("pd_sq_zero", 2, ham.smush_u(0.0, 0.0, np.pi / 2, 0.0, zero, zero, t=0.5).numpy())
+    if fb:
+        phase_parity(stats, ks=(3,), targets=fb, restarts=PD_RESTARTS, tag="_pdfb", gate=pd_sq)
+    t2 = time.perf_counter()
+    qv = route(library.qv(16, seed=0), grid_coupling(4, 4), seed=0, rows_cols=(4, 4))
+    walls["qv"], _ = run("QV-16 seed 0", qv, "qv16")
+    t3 = time.perf_counter()
+
+    name, k, n = FRONTIER_ROW
+    row, wall, launches, general, peak = counted(lambda: certify_frontier.certify_row(name, k, n, device="cuda",
+                                                                                      detail=True))
+    gc, gg, t, _ = NAMED_GATES[name]
+    eval_fn, _ = _smush_eval(gc, gg, t, k)
+    again = makhlin_functional_cost(torch.as_tensor(_eval_np(eval_fn, row["x"], "cpu")),
+                                    torch.as_tensor(row["targets"])).numpy()
+    err = float(np.abs(again - row["losses"])[row["certified"]].max()) if row["certified"].any() else 0.0
+    print(f"[pd] {card}: (d) certify_row {name} k={k}: {row['frontier_sampled']} frontier targets, certified fraction "
+          f"{row['certified_frac']} (JAX {FRONTIER_JAX_FRAC} at n = 100), median loss {row['median_loss']:.3e}, worst "
+          f"{row['worst_loss']:.3e}, {row['rounds']} solve rounds, {row['seconds']} s, {wall:.3f} s in all, peak "
+          f"{peak:.0f} MiB, general-solver calls {general}; certified losses against the CPU's f64 Makhlin functional "
+          f"of x: max|d| {err:.3e} (need <= {FRONTIER_RECOMPUTE_ATOL:g})")
+    check(row["frontier_sampled"] == n and np.isfinite(row["losses"]).all(), f"certify_row {name} k={k}: {row}")
+    check(err <= FRONTIER_RECOMPUTE_ATOL, f"certify_row {name} k={k}: a certified loss is off by {err:.3e}")
+    check_counts(f"certify_row {name} k={k}", launches, general, 0, row["rounds"])
+    t4 = time.perf_counter()
+    print(f"[pd] {card}: QFT-{QFT_Q} fit_1q wall clock cold {walls['cold']:.3f} s, warm {walls['warm']:.3f} s; QV-16 "
+          f"{walls['qv']:.3f} s")
+    print(f"[pd] {card}: phase {t4 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
+          f"(d) {t4 - t3:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its seconds kept under ``name`` for the result line."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        card = phase_device()
-        phase_build()
+        card = timed("device", phase_device)
+        timed("build", phase_build)
         stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
-        phase_parity(stats)
-        phase_generic_vs_instance(stats)
-        counts, main_rate = phase_main_path(card)
-        t_counts, t_polish_err = phase_transpile(card, main_rate)
+        timed("parity", phase_parity, stats)
+        timed("generic", phase_generic_vs_instance, stats)
+        counts, main_rate = timed("main", phase_main_path, card)
+        t_counts, t_polish_err = timed("transpile", phase_transpile, card, main_rate)
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
         counted = Counted()
-        phase_api(card, counted, stats)
-        phase_basis(card, counted, stats, QUARTER_ISWAP)
-        phase_basis(card, counted, stats, EIGHTH_ISWAP)
-        phase_basis(card, counted, stats, SIXTEENTH_ISWAP)
-        phase_coverage(card, counted, stats)
-        phase_depth(card, counted, stats)
-        phase_general(card, counted)
-        phase_driven(card, counted, stats)
-        phase_slam(card, counted, stats)
+        timed("api", phase_api, card, counted, stats)
+        for basis in (QUARTER_ISWAP, EIGHTH_ISWAP, SIXTEENTH_ISWAP):
+            timed(basis.tag, phase_basis, card, counted, stats, basis)
+        timed("coverage", phase_coverage, card, counted, stats)
+        timed("depth", phase_depth, card, counted, stats)
+        timed("general", phase_general, card, counted)
+        timed("driven", phase_driven, card, counted, stats)
+        timed("slam", phase_slam, card, counted, stats)
+        timed("pd_fit", phase_pd_fit, card, counted, stats)
         print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth, "
-              f"general-solver, driven and SLAM runs: {counted.total}")
+              f"general-solver, driven, SLAM and driven-fit runs: {counted.total}")
+        print(f"[result] seconds by phase: {seconds}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

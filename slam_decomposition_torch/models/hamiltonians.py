@@ -87,9 +87,10 @@ def _phased(K: np.ndarray, g: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
 
 
 def _propagator(H: torch.Tensor, t) -> torch.Tensor:
-    """expm(-i t H) for a scalar duration t (a number or a 0-d tensor)."""
+    """expm(-i t H) for a duration t: a number, or a tensor batched like
+    H's leading axes."""
     t = torch.as_tensor(t, dtype=H.real.dtype, device=H.device)
-    return expm_taylor(-1j * (t * H))
+    return expm_taylor(-1j * (t[..., None, None] * H))
 
 
 def conversion_gain_h(gc, gg, phi_c=0.0, phi_g=0.0, dtype=torch.float64) -> torch.Tensor:
@@ -128,10 +129,13 @@ def _per_slice(*params):
 
 def smush_slices(phi_c, phi_g, gc, gg, gx_vec, gy_vec, t=1.0, dtype=torch.float64) -> torch.Tensor:
     """The (..., n, 4, 4) propagators expm(-i dt H(gx_i, gy_i)), dt = t / n,
-    of a pulse's n drive slices: one batched expm."""
+    of a pulse's n drive slices: one batched expm. ``t`` is a number or a
+    tensor batched like the drive vectors' leading axes (a duration per
+    pulse)."""
     phi_c, phi_g, gc, gg, gx, gy = _reals(dtype, phi_c, phi_g, gc, gg, gx_vec, gy_vec)
     H = smush_h(*_per_slice(phi_c, phi_g, gc, gg), gx, gy, dtype=dtype)
-    return _propagator(H, torch.as_tensor(t, dtype=dtype) / gx.shape[-1])
+    dt = torch.as_tensor(t, dtype=dtype, device=gx.device) / gx.shape[-1]
+    return _propagator(H, dt[..., None])
 
 
 def ordered_product(Us: torch.Tensor) -> torch.Tensor:
@@ -146,8 +150,9 @@ def ordered_product(Us: torch.Tensor) -> torch.Tensor:
 def smush_u(phi_c, phi_g, gc, gg, gx_vec, gy_vec, t=1.0, dtype=torch.float64) -> torch.Tensor:
     """Trotter product over piecewise-constant 1Q drive slices:
     U = prod_i expm(-i dt H(gx_i, gy_i)), dt = t / n, the later slice on
-    the left (JAX hamiltonians.py:116-156). The coupling parameters batch
-    like the drive vectors' leading axes; t is a scalar."""
+    the left (JAX hamiltonians.py:116-156). The coupling parameters and
+    ``t`` (a number, or a duration per pulse as a tensor) batch like the
+    drive vectors' leading axes."""
     return ordered_product(smush_slices(phi_c, phi_g, gc, gg, gx_vec, gy_vec, t, dtype))
 
 

@@ -15,7 +15,8 @@ checkout; a relative OUT is taken from there). Printed per
 run: its exit code, the card, the ptxas and occupancy lines, each kernel's
 time beside its plain version's (phase 3), the bound and with_cost lines
 where the tree prints them, the main path's and the transpile path's
-timing lines, and the API, depth and general-solver phases' lines.
+timing lines, the API, depth and general-solver phases' lines, and the
+driven fit's (phase 15) lines.
 Exits 1 if any run failed.
 """
 
@@ -29,7 +30,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 KEEP = re.compile(r"^(NVIDIA |\[build\] (ptxas|occupancy)|\[bound\] |\[main\] |\[api\] |\[frac\] |\[depth\] |\[general\] |"
-                  r"\[parity\] adam_chain with_cost |\[transpile\] NVIDIA )")
+                  r"\[parity\] adam_chain with_cost |\[transpile\] NVIDIA |\[pd\] NVIDIA )")
 PARITY = re.compile(r"^\[parity\] (\S+) (.*?) L=(\d+):.*kernel ([\d.]+) ms, plain ([\d.]+) ms")
 
 

@@ -7,9 +7,12 @@ Passes operate on consolidated 2Q blocks. ``pass_manager_basic`` with
 ``batched=True`` synthesizes every sqiSwap block of a k-class in one device
 call (transpile/batch_synth.py); otherwise each block goes through the
 exact host routine. The substitution passes assign every block's
-application count in one batched call, and ``fit_1q=True`` fits the 1Q
-layers of every substituted block of one 2Q structure in one multi-start
-solve (``fit_substituted_1q``: the chain kernels on the card).
+application count in one batched call. With ``fit_1q=True`` the winner
+pass fits the 1Q layers of every substituted block of one 2Q structure in
+one multi-start solve (``fit_substituted_1q``: the chain kernels on the
+card), and the parallel-drive pass fits each block's driven pulses and
+layers (``fit_substituted_pd``: the general solver by pulse count, its
+fallback on the chain kernels).
 """
 
 from __future__ import annotations
@@ -372,6 +375,308 @@ def speed_gate_substitute(
 # ------------------------------------------------ parallel-drive identities
 
 
+def _emit_u_layer(c: Circuit, p, duration_1q):
+    """A "u" op of 3 angles on each qubit from the 6 angles p."""
+    for q in (0, 1):
+        c.append("u", (q,), params=tuple(p[q * 3 : (q + 1) * 3]), duration=duration_1q)
+
+
+def _block_infidelities(Vs: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """1 - |tr(V^dag U)| / 4 of each (V, U) pair."""
+    return 1.0 - np.abs(np.einsum("nij,nij->n", Vs.conj(), targets)) / 4.0
+
+
+def pd_core(m: int, gc: float = np.pi / 2, n_slices: int = 4):
+    """(core_fn, n_core) of the driven core of ``fit_substituted_pd``'s
+    m-pulse group: core_fn(x) evaluates pulse(t_1) [u3 layer, pulse(t_j)]*
+    as (..., 4, 4). Layout: [t_1..t_m, then per pulse phi_c, phi_g,
+    gx[n_slices], gy[n_slices], then the (m - 1) interior u3 layers of 6
+    angles]. The pulse times are frozen: detached, so that gradients and
+    Jacobian columns of their slots are zero, and each lane's pulses run at
+    its own times."""
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models.trajectory import _layer
+
+    per_pulse = 2 + 2 * n_slices
+    n_core = m + m * per_pulse + max(m - 1, 0) * 6
+
+    def core_fn(x):
+        ts = x[..., :m].detach()
+
+        def pulse(j):
+            pp = x[..., m + j * per_pulse : m + (j + 1) * per_pulse]
+            return ham.smush_u(pp[..., 0], pp[..., 1], gc, 0.0, pp[..., 2 : 2 + n_slices], pp[..., 2 + n_slices :],
+                               t=ts[..., j])
+
+        U = pulse(0)
+        for j in range(1, m):
+            lo = m + m * per_pulse + (j - 1) * 6
+            U = pulse(j) @ (_layer(x[..., lo : lo + 6], U) @ U)
+        return U
+
+    return core_fn, n_core
+
+
+def fit_substituted_pd(
+    blocks,
+    subs: Dict[int, Circuit],
+    plans: Dict[int, List[float]],
+    duration_1q: float = 0.0,
+    gc: float = np.pi / 2,
+    n_slices: int = 4,
+    threshold: float = 1e-9,
+    restarts: int = 16,
+    seed: int = 0,
+    device=DEFAULT_DEVICE,
+    stats: Optional[list] = None,
+) -> Dict[int, Circuit]:
+    """Fidelity-faithful parallel-drive substitution (JAX passes.py:411-759):
+    for each block, the smush pulses of its plan (piecewise-constant 1Q
+    drives riding the iSwap-strength coupler, models/trajectory.py) and the
+    u3 layers around them, fitted so that the substitution equals the
+    block's unitary up to global phase.
+
+    ``plans[i]`` lists the pulse times (in iSwap units) that
+    ``optimized_sqiswap_sub`` claimed for block i.
+
+    - A one-pulse block whose zero-drive pulse already has the block's
+      class (an iSwap-class block) takes no optimizer: its four locals
+      follow from two KAK forms (all zero pulses are one batched call).
+    - The others are fitted by pulse count m, one group at a time: a
+      Makhlin class fit of the drive core (the pulse times ride in frozen
+      parameter slots, detached from the gradients), the outer locals by
+      KAK sandwich of every fitted core, two f64 LM polishes of core and
+      locals together, and for lanes still above ``threshold`` a direct
+      full-parameter solve from fresh starts with the polished point as
+      restart 0, the better of the two kept. Every solve of this stage
+      takes the general path.
+    - Blocks still above ``threshold`` fall back to three zero-drive
+      sqiSwap-time pulses with four u3 layers: a plain depth-3 chain, so
+      the chain kernels solve it on the card. Blocks above ``threshold``
+      after that keep their placeholders and are logged.
+
+    Starts come from ``np.random.default_rng(seed)`` in the JAX package's
+    order (each group's starts in sorted m, its rescue's where it has
+    failures, the fallback's last). ``device`` is the card unless the
+    caller names another. ``stats`` (a list, if given) receives a record
+    per stage: "exact", one "class_fit" per m, and "fallback", each with
+    its blocks, the blocks it fitted, its solver path and seconds, and the
+    fitted circuits by block index."""
+    from slam_decomposition_torch.models import hamiltonians as ham
+    from slam_decomposition_torch.models.gates import _const_gate
+    from slam_decomposition_torch.models.templates import build_ansatz
+    from slam_decomposition_torch.models.trajectory import _locals_angles, _with_locals
+    from slam_decomposition_torch.opt import costs
+    from slam_decomposition_torch.opt.gauss_newton import make_solver
+    from slam_decomposition_torch.transpile.kak import kak_form
+
+    device = resolve_device(device)
+    out = dict(subs)
+    rng = np.random.default_rng(seed)
+    per_pulse = 2 + 2 * n_slices
+
+    def pulses(pp: np.ndarray, ts: np.ndarray) -> np.ndarray:
+        """(N, 4, 4) smush pulses of parameters pp (N, per_pulse), each at
+        its own duration ts (N,): one batched call on ``device``."""
+        x = torch.as_tensor(pp, dtype=torch.float64, device=device)
+        t = torch.as_tensor(ts, dtype=torch.float64, device=device)
+        return ham.smush_u(x[:, 0], x[:, 1], gc, 0.0, x[:, 2 : 2 + n_slices], x[:, 2 + n_slices :], t=t).cpu().numpy()
+
+    def zero_pulses(ts) -> np.ndarray:
+        """The zero-drive pulse of each duration in ts: one batched call."""
+        return pulses(np.zeros((len(ts), per_pulse)), np.asarray(ts, dtype=float))
+
+    def record(stage, **kw):
+        if stats is not None:
+            stats.append({"stage": stage, **kw})
+
+    block_forms: Dict[bytes, object] = {}
+
+    def block_form(i):
+        """The block's KAK form, once per distinct unitary (QFT-64's 2048
+        blocks hold 65)."""
+        key = blocks[i].unitary.tobytes()
+        if key not in block_forms:
+            block_forms[key] = kak_form(blocks[i].unitary)
+        return block_forms[key]
+
+    def sandwich(bf, pf):
+        """Outer locals (A1, B1, A2, B2) with (A2 x B2) P (A1 x B1) equal to
+        the block, from the block's and the pulse's KAK forms."""
+        return (pf.l2.conj().T @ bf.l2, pf.r2.conj().T @ bf.r2, bf.l1 @ pf.l1.conj().T, bf.r1 @ pf.r1.conj().T)
+
+    def durations_2q(i):
+        return [op.duration for op in subs[i].ops if op.n_qubits == 2]
+
+    # --- the exact path: a single zero-drive pulse whose class equals the
+    # block's. The duration is re-derived from the block's f64 class where
+    # 2 t[0] of its KAK form lies within 1e-5 of the plan, as the JAX package
+    # does, and the classes are certified against each other at 1e-12. The
+    # zero pulse of duration t is in the iSwap family, KAK coordinates
+    # (pi t / 4, pi t / 4, 0), so in practice the iSwap-class blocks match;
+    # controlled-family blocks, (a, 0, 0), never do and take the class fit
+    t0_clock = time.perf_counter()
+    single = [i for i in plans if len(plans[i]) == 1]
+    t_pulse = {}
+    for i in single:
+        t_exact = 2.0 * float(block_form(i).t[0])
+        t_pulse[i] = t_exact if abs(t_exact - plans[i][0]) < 1e-5 else plans[i][0]
+    P0s = dict(zip(single, zero_pulses([t_pulse[i] for i in single]))) if single else {}
+    pulse_forms: Dict[float, object] = {}
+    exact: Dict[int, Circuit] = {}
+    groups: Dict[int, List[int]] = {}
+    for i in plans:
+        if i in P0s:
+            bf, P0 = block_form(i), P0s[i]
+            key = round(float(t_pulse[i]), 12)
+            if key not in pulse_forms:
+                pulse_forms[key] = kak_form(P0)
+            pf = pulse_forms[key]
+            if np.abs(bf.t - pf.t).max() < 1e-12:
+                A1, B1, A2, B2 = sandwich(bf, pf)
+                old = durations_2q(i)
+                c = Circuit(2)
+                c.unitary(A1, (0,), name="u1q", duration=duration_1q)
+                c.unitary(B1, (1,), name="u1q", duration=duration_1q)
+                c.append("pd_pulse", (0, 1), matrix=P0, duration=old[0] if old else None)
+                c.unitary(A2, (0,), name="u1q", duration=duration_1q)
+                c.unitary(B2, (1,), name="u1q", duration=duration_1q)
+                exact[i] = c
+                continue
+        groups.setdefault(len(plans[i]), []).append(i)
+    out.update(exact)
+    record("exact", blocks=len(exact), fitted=len(exact), indices=sorted(exact), path="none",
+           seconds=time.perf_counter() - t0_clock, circuits=exact)
+
+    fallback: List[int] = []
+    for m, idxs in sorted(groups.items()):
+        if m == 0:
+            continue
+        clock = time.perf_counter()
+        seconds = {}
+        # --- stage 1: class fit of the drive core (Makhlin residual, no
+        # outer layers), all blocks with m pulses at once
+        core_fn, n_core = pd_core(m, gc, n_slices)
+        B = len(idxs)
+        targets = np.stack([blocks[i].unitary for i in idxs])
+        tgts = torch.as_tensor(targets, dtype=torch.complex128, device=device)
+        solver = make_solver(core_fn, n_core, adam_iters=400, lm32_iters=16, lm_iters=16, residual="makhlin",
+                             final_cost_fn=costs.makhlin_functional_cost, device=device)
+        x0 = rng.uniform(-2 * np.pi, 2 * np.pi, (B, restarts, n_core))
+        for j, i in enumerate(idxs):
+            x0[j, :, :m] = plans[i]
+        xs, _ = solver(torch.as_tensor(x0, device=device), tgts)
+        seconds["class_fit"] = time.perf_counter() - clock
+
+        # --- stage 2: the outer locals by KAK sandwich of every fitted core
+        # (one batched evaluation), seeding the full parameterization
+        clock = time.perf_counter()
+        cores = core_fn(xs).cpu().numpy()
+        xs = xs.cpu().numpy()
+        x_full = np.zeros((B, n_core + 12))
+        x_full[:, :n_core] = xs
+        for j, i in enumerate(idxs):
+            x_full[j, n_core:] = _locals_angles(*sandwich(block_form(i), kak_form(cores[j])))
+        seconds["sandwich"] = time.perf_counter() - clock
+
+        # --- stage 3: two f64 LM polishes of core and locals together (each
+        # restarts the damping at 1e-3), then a direct full-parameter solve
+        # of the lanes still above the threshold
+        clock = time.perf_counter()
+        full_fn = _with_locals(core_fn, n_core)
+        full = make_solver(full_fn, n_core + 12, device=device)
+        xf = torch.as_tensor(x_full, device=device)
+        x_pol = full.polish(full.polish(xf, tgts, iters=12), tgts, iters=12)
+        infids = _block_infidelities(full_fn(x_pol).cpu().numpy(), targets)
+        x_pol = x_pol.cpu().numpy()
+        seconds["polish"] = time.perf_counter() - clock
+        fail = np.flatnonzero(infids > threshold)
+        rescued = 0
+        if len(fail):
+            clock = time.perf_counter()
+            rescue = make_solver(full_fn, n_core + 12, adam_iters=600, lm32_iters=16, lm_iters=16, device=device)
+            rx0 = rng.uniform(-2 * np.pi, 2 * np.pi, (len(fail), restarts, n_core + 12))
+            for jj, j in enumerate(fail):
+                rx0[jj, :, :m] = plans[idxs[j]]
+                rx0[jj, 0] = x_pol[j]  # restart 0: the polished seed
+            rxs, _ = rescue(torch.as_tensor(rx0, device=device), tgts[torch.as_tensor(fail, device=device)])
+            r_infids = _block_infidelities(full_fn(rxs).cpu().numpy(), targets[fail])
+            rxs = rxs.cpu().numpy()
+            for jj, j in enumerate(fail):
+                if r_infids[jj] < infids[j]:
+                    x_pol[j] = rxs[jj]
+                    infids[j] = r_infids[jj]
+                    rescued += int(r_infids[jj] <= threshold)
+            seconds["rescue"] = time.perf_counter() - clock
+
+        # --- the emit: every (block, pulse) matrix in one batched call, each
+        # pulse at its plan's duration
+        clock = time.perf_counter()
+        PP = np.stack([[x_pol[j, m + mm * per_pulse : m + (mm + 1) * per_pulse] for mm in range(m)] for j in range(B)])
+        TT = np.array([[plans[i][mm] for mm in range(m)] for i in idxs])
+        Upulses = pulses(PP.reshape(B * m, per_pulse), TT.reshape(B * m)).reshape(B, m, 4, 4)
+        fitted: Dict[int, Circuit] = {}
+        for j, i in enumerate(idxs):
+            if infids[j] > threshold:
+                fallback.append(i)
+                continue
+            x = x_pol[j]
+            old = durations_2q(i)
+            c = fitted[i] = Circuit(2)
+            _emit_u_layer(c, x[n_core : n_core + 6], duration_1q)
+            for layer in range(m):
+                pp = x[m + layer * per_pulse : m + (layer + 1) * per_pulse]
+                c.append("pd_pulse", (0, 1), params=tuple(pp), matrix=Upulses[j, layer],
+                         duration=old[layer] if layer < len(old) else None)
+                if layer < m - 1:
+                    lo = m + m * per_pulse + layer * 6
+                    _emit_u_layer(c, x[lo : lo + 6], duration_1q)
+            _emit_u_layer(c, x[n_core + 6 : n_core + 12], duration_1q)
+        out.update(fitted)
+        seconds["emit"] = time.perf_counter() - clock
+        worst = float(infids.max())
+        logger.info("fit_substituted_pd: fitted %d/%d blocks with %d pulse(s) (worst block infidelity %.2e)",
+                    len(fitted), B, m, worst)
+        record("class_fit", m=m, blocks=B, fitted=len(fitted), indices=list(idxs), infidelities=infids,
+               failed=int(len(fail)), rescued=rescued, worst=worst, path=solver.path, seconds=sum(seconds.values()),
+               stage_seconds=seconds, circuits=fitted)
+
+    if fallback:
+        # blocks the driven plan cannot reach at certification depth (SWAP
+        # under the time-optimal [1.0, 0.5] plan needs an instantaneous local
+        # layer inside the coupler time; models/trajectory.improved_swap):
+        # three sqiSwap-time zero-drive pulses, one more 1Q layer of time,
+        # solved as one plain depth-3 chain
+        clock = time.perf_counter()
+        (Pm,) = zero_pulses([0.5])
+        a = build_ansatz([_const_gate("pd_sq_zero", 2, Pm)] * 3)
+        solver = make_solver(a.eval_fn, a.n_params, chain_gates=a.chain_gates, device=device)
+        tgts = torch.as_tensor(np.stack([blocks[i].unitary for i in fallback]), dtype=torch.complex128, device=device)
+        x0 = rng.uniform(0, 2 * np.pi, (len(fallback), restarts, a.n_params))
+        xs, fs = solver(torch.as_tensor(x0, device=device), tgts)
+        xs, fs = xs.cpu().numpy(), fs.cpu().numpy()
+        fitted = {}
+        for j, i in enumerate(fallback):
+            if fs[j] > threshold:
+                continue
+            old = durations_2q(i)
+            half = old[0] * 0.5 / plans[i][0] if old else None
+            c = fitted[i] = Circuit(2)
+            for layer in range(4):
+                _emit_u_layer(c, xs[j, layer * 6 : (layer + 1) * 6], duration_1q)
+                if layer < 3:
+                    c.append("pd_pulse", (0, 1), params=(0.0,) * per_pulse, matrix=Pm, duration=half)
+        out.update(fitted)
+        if len(fitted) < len(fallback):
+            logger.warning("fit_substituted_pd: %d blocks above threshold even after the exact fallback; "
+                           "placeholders kept there", len(fallback) - len(fitted))
+        logger.info("fit_substituted_pd: exact 3-segment fallback rescued %d/%d driven-plan failures",
+                    len(fitted), len(fallback))
+        record("fallback", blocks=len(fallback), fitted=len(fitted), indices=fallback, costs=fs,
+               worst=float(fs.max()), path=solver.path, seconds=time.perf_counter() - clock, circuits=fitted)
+    return out
+
+
 def optimized_sqiswap_sub(
     circ: Circuit,
     duration_1q: float = 0.0,
@@ -379,23 +684,22 @@ def optimized_sqiswap_sub(
     seed: int = 0,
     fit_1q: bool = False,
     device=DEFAULT_DEVICE,
+    stats: Optional[list] = None,
 ) -> Circuit:
     """OptimizedSqiswapSub (speed_limit_pass.py:317-464): CX-family blocks
     become a time-scaled parallel-driven iSwap, SWAP an iSwap then a
     sqiSwap, iSwap one iSwap, and any other block the fewest applications
     of the extended (smush) iSwap or sqiSwap coverage. Coordinates of all
     blocks are one batched call on ``device``, the general blocks' counts
-    one batched call per set. 1Q layers are random placeholders.
-
-    ``fit_1q=True`` needs the driven fit of each block (JAX
-    ``fit_substituted_pd``), which the port does not have yet (ROADMAP.md,
-    Queue 1): it raises NotImplementedError."""
+    one batched call per set. 1Q layers are random placeholders, unless
+    ``fit_1q``: then ``fit_substituted_pd`` fits each block's pulses and
+    layers to its unitary (``stats``: its per-stage records)."""
+    circ, blocks, subs, plans = _pd_substitutions(circ, duration_1q, speed_method, seed, resolve_device(device))
+    if not blocks:
+        return circ
     if fit_1q:
-        raise NotImplementedError(
-            "optimized_sqiswap_sub(fit_1q=True) needs fit_substituted_pd, not ported yet (ROADMAP.md, Queue 1)"
-        )
-    circ, blocks, subs, _ = _pd_substitutions(circ, duration_1q, speed_method, seed, resolve_device(device))
-    return _blocks_to_circuit(circ, subs) if blocks else circ
+        subs = fit_substituted_pd(blocks, subs, plans, duration_1q=duration_1q, device=device, stats=stats)
+    return _blocks_to_circuit(circ, subs)
 
 
 def _pd_substitutions(circ: Circuit, duration_1q: float, speed_method: str, seed: int, device):
@@ -510,13 +814,16 @@ def pass_manager_slam(
 
 def pass_manager_optimized_sqiswap(
     circ: Circuit, duration_1q: float = 0.0, speed_method: str = "linear", fit_1q: bool = False,
-    device=DEFAULT_DEVICE,
+    device=DEFAULT_DEVICE, stats: Optional[list] = None,
 ) -> Tuple[Circuit, Dict]:
     """Parallel-drive identity manager (pass_manager_optimized_sqiswap,
     speed_limit_pass.py:468-497): ``optimized_sqiswap_sub``, merged 1Q
-    runs, and (circuit, duration_analysis). ``fit_1q=True`` raises
-    NotImplementedError until the driven fit is ported."""
+    runs, and (circuit, duration_analysis). ``fit_1q=True`` makes the
+    output fidelity-faithful where the driven fit certifies
+    (``fit_substituted_pd``; ``stats``: its per-stage records). ``device``
+    is the card unless the caller names another."""
     out = optimize_1q_gates(
-        optimized_sqiswap_sub(circ, duration_1q=duration_1q, speed_method=speed_method, fit_1q=fit_1q, device=device)
+        optimized_sqiswap_sub(circ, duration_1q=duration_1q, speed_method=speed_method, fit_1q=fit_1q, device=device,
+                              stats=stats)
     )
     return out, duration_analysis(out, duration_1q)

@@ -32,6 +32,8 @@ from slam_decomposition_torch.pipeline import decompose_haar
 from slam_decomposition_torch.transpile import library
 from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_batch
 from slam_decomposition_torch.transpile.consolidate import block_coordinate_counts
+from slam_decomposition_torch.tools import certify_frontier
+from slam_decomposition_torch.transpile import passes
 from slam_decomposition_torch.transpile.passes import pass_manager_basic
 from slam_decomposition_torch.utils.playground import ParallelDriveExplorer
 
@@ -73,6 +75,11 @@ ENTRY_POINTS = {
     "targeted_smush_coords": lambda: smush_volume.targeted_smush_coords(1.0, 0.0, 1.0, 1, restarts=1, iters=1),
     "extend_coverage": lambda: smush_volume.extend_coverage("B", save=False),
     "ParallelDriveExplorer": lambda: ParallelDriveExplorer(N=2, R=2),
+    "pass_manager_optimized_sqiswap(fit_1q)": lambda: passes.pass_manager_optimized_sqiswap(
+        library.qft(3), 0.25, fit_1q=True),
+    "fit_substituted_pd": lambda: passes.fit_substituted_pd([], {}, {}),
+    "frontier_targets": lambda: certify_frontier.frontier_targets("B", 1, 2),
+    "certify_row": lambda: certify_frontier.certify_row("B", 1, 2, restarts=1),
 }
 
 

@@ -198,3 +198,62 @@ def test_fit_substituted_1q_on_the_kernels(dev):
     if all(s["fitted"] == s["blocks"] for s in stats):
         U, V = c.to_matrix(), out.to_matrix()
         assert 1 - abs(np.trace(V.conj().T @ U)) / U.shape[0] <= 1e-9
+
+
+def _pd_zero_inputs(dev, seed, L):
+    """The chain of the parallel-drive fallback: three zero-drive
+    sqiSwap-time pulses of the iSwap-strength coupler (expm entries near
+    1e-17 count as nonzeros in the kernels' gate lists), Haar targets."""
+    from slam_decomposition_torch.models import hamiltonians as ham
+
+    zero = np.zeros(4)
+    g = gates._const_gate("pd_sq_zero", 2, ham.smush_u(0.0, 0.0, np.pi / 2, 0.0, zero, zero, t=0.5).numpy())
+    a = build_ansatz([g] * 3)
+    g64 = torch.as_tensor(a.chain_gates).to(dev)
+    T = torch.as_tensor(haar_sample(L, seed=seed)).to(dev)
+    x0 = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2 * math.pi, (L, a.n_params)),
+                         dtype=torch.float32).to(dev)
+    return g64, g64.to(torch.complex64), T, T.to(torch.complex64).contiguous(), x0
+
+
+@pytest.mark.parametrize("L", LANES)
+def test_kernels_on_the_pd_fallback_chain(dev, L):
+    """Adam, the LM and the polish against their plain versions on the
+    fallback's K = 3 chain, with the limits of the sqiSwap chain's tests."""
+    g64, g32, T, T32, x0 = _pd_zero_inputs(dev, 5, L)
+    sched = ck.adam_schedule(100, device=dev)
+    d = (ck.adam_chain(x0, T32, g32, sched[:25].contiguous())
+         - ck.adam_chain_ref(x0, T32, g32, sched[:25].contiguous())).abs().amax(1)
+    assert (d <= 5e-5).float().mean().item() >= 0.99
+    xa = ck.adam_chain(x0, T32, g32, sched)
+    xl, f = ck.lm_chain(xa, T32, g32, 8)
+    _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
+    assert torch.isclose(f, f_ref, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
+    x64 = xl.double().contiguous()
+    xp, fp = ck.polish_chain(x64, T, g64, 6)
+    _, fp_ref = ck.polish_chain_ref(x64, T, g64, 6)
+    c, c_ref = certificate(fp), certificate(fp_ref)
+    assert ((c <= 1e-10) == (c_ref <= 1e-10)).float().mean().item() >= 0.99
+    ok = c <= 1e-10
+    assert ok.any()
+    assert (c - ck.square_cost(xp, T, g64))[ok].abs().max().item() <= 1e-13
+
+
+def test_fit_substituted_pd_fallback_on_the_kernels(dev):
+    """cx-swap-cx through the parallel-drive pass on the card: the SWAP
+    block lands in the exact 3-segment fallback, one launch of each chain
+    kernel, and the circuit keeps its unitary within 1e-9."""
+    from slam_decomposition_torch.transpile.ir import Circuit
+    from slam_decomposition_torch.transpile.passes import pass_manager_optimized_sqiswap
+
+    c = Circuit(3)
+    c.cx(0, 1)
+    c.swap(1, 2)
+    c.cx(0, 1)
+    ck.reset_launch_counts()
+    stats = []
+    out, _ = pass_manager_optimized_sqiswap(c, duration_1q=0.25, fit_1q=True, device=dev, stats=stats)
+    assert ck.launch_counts() == {"adam_chain": 1, "lm_chain": 1, "polish_chain": 1}
+    assert [s["stage"] for s in stats][-1] == "fallback" and stats[-1]["path"] == "kernels"
+    U, V = c.to_matrix(), out.to_matrix()
+    assert 1 - abs(np.trace(V.conj().T @ U)) / U.shape[0] <= 1e-9

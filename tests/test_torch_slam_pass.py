@@ -228,13 +228,6 @@ def test_optimized_sqiswap_sub_matches_jax(circ, jax_data_copy, monkeypatch):
     _analysis_equal(pm, m)
 
 
-def test_optimized_sqiswap_fit_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        passes.optimized_sqiswap_sub(library.qft(4), duration_1q=0.25, fit_1q=True, device=CPU)
-    with pytest.raises(NotImplementedError):
-        passes.pass_manager_optimized_sqiswap(library.qft(4), duration_1q=0.25, fit_1q=True, device=CPU)
-
-
 def test_headline_swap_and_vqe_linear_rows():
     """SWAP 2.5 -> 2.25 and VQE(Linear)-16 on the 4x4 grid at seed 0,
     25.75 -> 21.50 (headline_results.json)."""
