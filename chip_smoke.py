@@ -167,9 +167,28 @@ Phases, one line each (more for the build report):
      beside the JAX package's 0.96 at n = 100, and every certified loss
      equal to the CPU's f64 Makhlin functional of the returned x within
      1e-12;
- 16. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 15) and the whole run's seconds, then the device
-     line.
+ 16. the mesh (parallel/), counted like the main path: (a)
+     pipeline.decompose_haar(B=100000, seed=456, mesh=make_mesh(1)) on a
+     one-rank NCCL group started in this process: the k histogram, 100000
+     certified, the losses equal bit for bit to phase 4's unsharded call,
+     per solved chunk one launch of Adam and of the LM and two of the polish
+     (the local winner's zero-iteration one and the polisher's), the stage
+     times and the group's start-up; (b)
+     graft_entry.dryrun_multichip(MESH_RANKS = 4): four spawned ranks on this
+     card over gloo, dp = 2, rp = 2, every check of the multi-chip dry run in
+     every rank (>= 0.5 certified in the production stage at B = 2048, R =
+     4, certified sets agreeing >= 0.999 with the unsharded solver, the
+     sharded ks equal to monodromy_ks_batch at B = 10240), each rank's
+     device, backend, lanes and launches printed and its launches added to
+     the counted runs'; (c) graft_entry.entry(): one batched cost and
+     gradient on the card, finite; (d) outside the counted runs, the kernels
+     at the mesh's shapes against their plain versions, timed: the
+     zero-iteration polish at (a)'s 10000 lanes and (b)'s 1024, and (b)'s
+     production shard (2048 Adam and LM lanes, 1024 polish lanes) with
+     phase 3's limits;
+ 17. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 16, the mesh ranks' included) and the whole run's
+     seconds, then the device line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
 n <= 78. The depth-generic programs (depth 13 on) are held after
@@ -389,6 +408,8 @@ FRONTIER_RECOMPUTE_ATOL = 1e-12  # a certified loss against the CPU's f64 Makhli
 # (slam_decomposition_torch/tools/headline.py; cut from 1 x 2 and 50 to make
 # room for phase 15), the JAX package's values from
 # scripts/headline_benchmarks.py main(16, 1, 1, 20) on the CPU
+ZERO_POLISH_ATOL = 1e-12  # the zero-iteration polish: its x (angles mod 4 pi) and ||r||^2 against the plain version's
+MESH_RANKS = 4  # phase 16 (b): ranks of the dry run, all on the one card (dp = 2, rp = 2)
 HEADLINE_REDUCED = (16, 1, 1, 20)
 HEADLINE_JAX = {
     "SWAP": {"basic": 2.5, "optimized": 2.25},
@@ -716,7 +737,7 @@ def phase_main_path(card):
     check(r.n_certified == B, f"certified {r.n_certified} of {B}")
     check(worst <= THRESH, f"worst loss {worst} > {THRESH}")
     check(all(v == want for v in counts.values()), f"launches {counts}, expected {want} of each kernel")
-    return counts, r.n_certified / t["total"]
+    return counts, r
 
 
 def contract(results, U):
@@ -1715,6 +1736,105 @@ def phase_pd_fit(card, counted, stats):
           f"(d) {t4 - t3:.1f}")
 
 
+def zero_polish_timing(stats, label, lanes, k=2):
+    """The polish at zero iterations (the mesh's local-winner certificate)
+    at ``lanes`` f64 lanes against its plain version, timed, under
+    stats["polish_chain"][label]."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.tools.inputs import kernel_inputs
+    from slam_decomposition_torch.utils import mfu
+
+    g64, _, T, _, x0, _ = kernel_inputs(k, lanes, 1, torch.device("cuda")).values()
+    x = x0.double().contiguous()
+    (xp, f), ms = timed_ms(lambda: ck.polish_chain(x, T, g64, 0))
+    (xp_ref, f_ref), plain_ms = timed_ms(lambda: ck.polish_chain_ref(x, T, g64, 0))
+    err = (f - f_ref).abs().max().item()
+    dx = (xp - xp_ref).abs().max().item()
+    print(f"[parity] polish_chain zero iterations {label} L={lanes}: max|d||r||^2| {err:.3e}, max|dx| {dx:.3e} "
+          f"(need <= {ZERO_POLISH_ATOL:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    check(err <= ZERO_POLISH_ATOL and dx <= ZERO_POLISH_ATOL, f"polish_chain {label} disagrees with its plain version")
+    st = stats["polish_chain"]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st[label] = {"lanes": lanes, "ms": ms, "plain_ms": plain_ms,
+                 "bound": bound_line("polish_chain", label, mfu.polish_launch(k, lanes, 0), ms)}
+
+
+def phase_mesh(card, counted, main, stats):
+    """(a) the main path on a one-rank mesh, against phase 4's result; (b)
+    the multi-chip dry run in MESH_RANKS ranks on this card; (c) the
+    single-chip compile check; then the kernels at the mesh's shapes against their plain
+    versions: the zero-iteration polish at (a)'s 10000 lanes ("k2_mesh1"),
+    and (b)'s production shard at k = 2 ("k2_mesh4x1": 2048 Adam and LM
+    lanes, 1024 polish lanes, and the zero-iteration polish at 1024)."""
+    from slam_decomposition_torch import graft_entry
+    from slam_decomposition_torch.parallel.mesh import make_mesh
+    from slam_decomposition_torch.pipeline import decompose_haar
+
+    # (a) a one-rank group, started by make_mesh(1)
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    t_group = time.perf_counter() - t0
+    try:
+        print(f"[mesh] (a) one-rank mesh {mesh.shape}: backend {mesh.backend}, device {mesh.device}; group start-up "
+              f"{t_group:.3f} s")
+        r, wall, launches, general, peak = counted(
+            lambda: decompose_haar(B=B, chunk=CHUNK, restarts=RESTARTS, thresh=THRESH, seed=SEED, mesh=mesh)
+        )
+    finally:
+        mesh.close()
+    hist = r.k_histogram()
+    # per solved chunk (warm-up, k buckets, rescue rounds) one launch of Adam
+    # and of the LM, and two of the polish: the local winner's zero-iteration
+    # one, then the polisher's
+    chunks = len(WANT_HIST) + sum(math.ceil(n / CHUNK) for n in [*hist.values(), *r.rescued])
+    want = {"adam_chain": chunks, "lm_chain": chunks, "polish_chain": 2 * chunks}
+    same = bool(np.array_equal(r.losses, main.losses))
+    t = r.times
+    print(f"[mesh] (a) k histogram {hist}; certified {r.n_certified}/{B}; rescued {r.rescued}; launches {launches} "
+          f"(expected {want}); general-solver calls {general}; losses equal to phase main's bit for bit: {same}")
+    print(f"[mesh] (a) {card}: ranges {t['ranges']:.3f} s, solve {t['solve']:.3f} s, rescue {t['rescue']:.3f} s, "
+          f"total {t['total']:.3f} s -> {r.n_certified / t['total']:.1f} targets/s (phase main: total "
+          f"{main.times['total']:.3f} s); call incl. warm-up {wall:.1f} s; peak device memory {peak:.0f} MiB")
+    check(mesh.backend == "nccl", f"a one-rank group on the card runs {mesh.backend}, not nccl")
+    check(hist == WANT_HIST, f"k histogram {hist} != {WANT_HIST}")
+    check(r.n_certified == B, f"certified {r.n_certified} of {B}")
+    check(same, "the one-rank mesh's losses differ from the unsharded main path's")
+    check(launches == want and general == 0, f"launches {launches}, general {general}; expected {want}, 0")
+
+    # (b) the dry run: MESH_RANKS ranks on this card over gloo, dp = 2, rp = 2
+    t0 = time.perf_counter()
+    ranks = graft_entry.dryrun_multichip(MESH_RANKS)
+    t_dry = time.perf_counter() - t0
+    bl, rl = 2048 // 2, 4 // 2  # the production stage's (B, R) over (dp, rp)
+    lanes_want = {"adam_chain": [bl * rl], "lm_chain": [bl * rl], "polish_chain": [bl, bl]}
+    for rk in ranks:
+        print(f"[mesh] (b) rank {rk['rank']} {rk['index']} on {rk['device']} ({rk['backend']}): production lanes "
+              f"{rk['production_shards']['lanes']}, its launches {rk['production_shards']['launches']}; the dry run's "
+              f"launches {rk['launches']}; certified {rk['certified']:.4f}, agreement {rk['agreement']:.4f}, "
+              f"max loss delta {rk['max_loss_delta']:.1e}")
+        check(rk["backend"] == "gloo" and rk["device"] == "cuda:0", f"rank {rk['rank']} on {rk['device']}")
+        check(rk["production_shards"]["launches"] == {"adam_chain": 1, "lm_chain": 1, "polish_chain": 2},
+              f"rank {rk['rank']}'s production launches {rk['production_shards']['launches']}")
+        check(all(v > 0 for v in rk["launches"].values()), f"rank {rk['rank']} launched {rk['launches']}")
+        check(rk["production_shards"]["lanes"] == lanes_want, f"rank {rk['rank']} lanes {rk['production_shards']['lanes']}")
+        check(rk["certified"] >= 0.5 and rk["agreement"] >= 0.999, f"rank {rk['rank']}: {rk}")
+        for name in counted.total:
+            counted.total[name] += rk["launches"][name]
+    print(f"[mesh] (b) {card}: dryrun_multichip({MESH_RANKS}) {t_dry:.1f} s, rank start-up included")
+
+    # (c) the compile check: one batched cost and gradient
+    fn, args = graft_entry.entry()
+    cost, grad = fn(*args)
+    torch.cuda.synchronize()
+    print(f"[mesh] (c) entry(): cost {tuple(cost.shape)} on {cost.device}, gradient {tuple(grad.shape)}; "
+          f"finite {bool(cost.isfinite().all() and grad.isfinite().all())}")
+    check(cost.shape == (64,) and grad.shape == (64, args[0].shape[1]), "entry() shapes")
+    check(bool(cost.isfinite().all()) and bool(grad.isfinite().all()), "entry() gave a non-finite cost or gradient")
+    zero_polish_timing(stats, "k2_zero_mesh1", CHUNK)
+    phase_parity(stats, ks=(2,), targets=bl, restarts=rl, tag="_mesh4x1")
+    zero_polish_timing(stats, "k2_zero_mesh4x1", bl)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
@@ -1737,8 +1857,8 @@ def main() -> int:
         stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
         timed("parity", phase_parity, stats)
         timed("generic", phase_generic_vs_instance, stats)
-        counts, main_rate = timed("main", phase_main_path, card)
-        t_counts, t_polish_err = timed("transpile", phase_transpile, card, main_rate)
+        counts, main = timed("main", phase_main_path, card)
+        t_counts, t_polish_err = timed("transpile", phase_transpile, card, main.n_certified / main.times["total"])
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
         counted = Counted()
         timed("api", phase_api, card, counted, stats)
@@ -1750,8 +1870,9 @@ def main() -> int:
         timed("driven", phase_driven, card, counted, stats)
         timed("slam", phase_slam, card, counted, stats)
         timed("pd_fit", phase_pd_fit, card, counted, stats)
+        timed("mesh", phase_mesh, card, counted, main, stats)
         print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth, "
-              f"general-solver, driven, SLAM and driven-fit runs: {counted.total}")
+              f"general-solver, driven, SLAM, driven-fit and mesh runs (the mesh ranks' included): {counted.total}")
         print(f"[result] seconds by phase: {seconds}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:

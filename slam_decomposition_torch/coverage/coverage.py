@@ -358,8 +358,8 @@ def _checked(idx: np.ndarray) -> np.ndarray:
 
 def _layer_index(coverage, targets, device):
     """(index into the layers of the cheapest covering layer, -1 for the
-    identity class; (N,) int64 numpy) and the layers (every entry of cost >
-    0, by cost). Raises ValueError if a target lies in no layer."""
+    identity class, -2 for a target in no layer; (N,) int64 numpy) and the
+    layers (every entry of cost > 0, by cost)."""
     device = device_of(targets, device)
     targets = torch.as_tensor(targets)
     if targets.ndim == 2:
@@ -371,7 +371,7 @@ def _layer_index(coverage, targets, device):
         U = targets[s : s + KS_CHUNK].to(device=device, dtype=torch.complex128)
         reps = weyl.monodromy_coords(U)[..., :3]  # (n, 2, 3)
         out.append(_index_of_reps(reps, tables).cpu().numpy())
-    return _checked(np.concatenate(out)), layers
+    return np.concatenate(out), layers
 
 
 def monodromy_ks_of_reps(coverage, reps, device=DEFAULT_DEVICE) -> np.ndarray:
@@ -397,16 +397,27 @@ def monodromy_ks_batch(coverage, targets, device=None) -> np.ndarray:
     cheapest covering layer. Runs on ``device`` (default: the targets'
     device, or the card for numpy input) in batches of KS_CHUNK targets,
     which bounds the (targets x reps x subpolytopes x rows) membership
-    tensor."""
+    tensor. Raises ValueError if a target lies in no coverage polytope."""
+    ks = monodromy_ks_unchecked(coverage, targets, device)
+    if (ks < 0).any():
+        raise ValueError("no coverage polytope contains some targets")
+    return ks
+
+
+def monodromy_ks_unchecked(coverage, targets, device=None) -> np.ndarray:
+    """``monodromy_ks_batch`` with -1 for a target in no coverage polytope,
+    in place of the ValueError: for a caller that must finish a collective
+    before it raises (``parallel.mesh.sharded_ks``)."""
     idx, layers = _layer_index(coverage, targets, device)
     ks_of_layer = np.array([len(cp.operations) for cp in layers])
-    return np.where(idx < 0, 0, ks_of_layer[np.maximum(idx, 0)])
+    return np.where(idx == -2, -1, np.where(idx < 0, 0, ks_of_layer[np.maximum(idx, 0)]))
 
 
 def monodromy_ranges_batch(coverage: Sequence[CircuitPolytope], targets, device=None) -> List[Tuple[int, CircuitPolytope]]:
     """(k, the cheapest covering CircuitPolytope) per target, batched as
     ``monodromy_ks_batch``; the identity class gives (0, coverage[0])."""
     idx, layers = _layer_index(coverage, targets, device)
+    idx = _checked(idx)
     return [(0, coverage[0]) if i < 0 else (len(layers[i].operations), layers[i]) for i in idx.tolist()]
 
 

@@ -15,7 +15,8 @@ All three work per lane on the chain U(x) = L_k G_{k-1} ... L_1 G_0 L_0
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (csrc/*.cu) or raises; there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``;
+``lane_counts()`` gives the lanes of each wrapper's calls, launched or plain.
 """
 
 from __future__ import annotations
@@ -285,6 +286,7 @@ def adam_chain(x0, tgt, gates, sched, with_cost: bool = False):
     ``with_cost``)."""
     L, n, k = _check_lanes(x0, tgt, gates, torch.float32, torch.complex64)
     _check("sched", sched, torch.float32, (sched.shape[0], 3), x0.device)
+    _lanes["adam_chain"].append(L)
     if not _kernel_target(x0, k):
         return adam_chain_ref(x0, tgt, gates, sched, with_cost)
     out = torch.empty_like(x0)
@@ -302,6 +304,7 @@ def lm_chain(x, tgt, gates, iters: int = LM32_ITERS):
     """f32 LM ranking pass: x (L, n) f32, tgt complex64, gates complex64
     -> (x (L, n) f32, ||r||^2 (L,) f32)."""
     L, n, k = _check_lanes(x, tgt, gates, torch.float32, torch.complex64)
+    _lanes["lm_chain"].append(L)
     if not _kernel_target(x, k):
         return lm_chain_ref(x, tgt, gates, iters)
     xo = torch.empty_like(x)
@@ -318,6 +321,7 @@ def polish_chain(x, tgt, gates, iters: int = LM_ITERS):
     """f64 LM polish: x (L, n) f64, tgt complex128, gates complex128 ->
     (x (L, n) f64 with angles reduced mod 4 pi, ||r||^2 (L,) f64)."""
     L, n, k = _check_lanes(x, tgt, gates, torch.float64, torch.complex128)
+    _lanes["polish_chain"].append(L)
     if not _kernel_target(x, k):
         return polish_chain_ref(x, tgt, gates, iters)
     xo = torch.empty_like(x)
@@ -333,13 +337,23 @@ def polish_chain(x, tgt, gates, iters: int = LM_ITERS):
 WRAPPERS = (adam_chain, lm_chain, polish_chain)
 
 
+_lanes: dict = {w.__name__: [] for w in WRAPPERS}  # the lanes of each call since the last reset
+
+
 def reset_launch_counts() -> None:
+    """Sets every wrapper's launch count to 0 and forgets its calls' lanes."""
     for w in WRAPPERS:
         w.launches = 0
+        _lanes[w.__name__].clear()
 
 
 def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def lane_counts() -> dict:
+    """{wrapper: [the lanes of each call since the last reset]}."""
+    return {name: list(v) for name, v in _lanes.items()}
 
 
 reset_launch_counts()

@@ -9,6 +9,13 @@ restarts, and re-solves the targets still above ``thresh`` at k=3 in up to
 three rescue rounds. The last chunk of a bucket is filled by cycling the
 bucket's own targets, so padding lanes are extra restarts of real targets;
 each target keeps its best loss.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``; JAX bench.py's BENCH_MESH=1
+path, :101, :118-137) every rank of the mesh calls it with the same
+arguments: the ranges run through ``sharded_ks`` and each chunk through
+``sharded_solver_smap`` (Adam 100, f32 LM 8, polish 6, the chain kernels).
+Every rank draws the same global starts from the same generator, so they
+equal the unsharded call's, and every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from slam_decomposition_torch.config import DEFAULT_DEVICE, resolve_device
 from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import ChainSolver
 from slam_decomposition_torch.opt.samplers import haar_sample
 
@@ -82,6 +90,26 @@ def _collect(losses, pending) -> None:
     np.fmin.at(losses, np.concatenate([p for p, _ in pending]), got)
 
 
+def _mesh_parts(coverage, mesh):
+    """(ks_fn(targets) -> ks, {k: solver}) of the mesh path."""
+    from slam_decomposition_torch.parallel.mesh import sharded_ks, sharded_solver_smap
+
+    sharded = sharded_ks(coverage, mesh)
+
+    def ks_fn(T):  # padded to the mesh size by repeating the first target, on the device
+        pad = T[:1].expand((-T.shape[0]) % mesh.size, *T.shape[1:])
+        return sharded(torch.cat([T, pad]))[: T.shape[0]]
+
+    solvers = {}
+    for k in KS:
+        a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+        solvers[k] = sharded_solver_smap(
+            a, mesh, adam_iters=ck.ADAM_ITERS, lm_iters=ck.LM_ITERS, lm32_iters=ck.LM32_ITERS,
+            chain_gates=a.chain_gates,
+        )
+    return ks_fn, solvers
+
+
 def decompose_haar(
     B: int = 100_000,
     chunk: int = 10_000,
@@ -89,24 +117,33 @@ def decompose_haar(
     thresh: float = 1e-10,
     seed: int = 456,
     device=DEFAULT_DEVICE,
+    mesh=None,
 ) -> HaarResult:
     """Decompose haar_sample(B, seed) into the sqiSwap basis, certified at
     square cost <= thresh. Before the clock starts, every solver shape runs
     once on a disjoint target set. Runs on the card unless ``device`` names
-    another."""
-    device = resolve_device(device)
+    another; with a ``mesh``, on every rank of it, on the rank's device
+    (``chunk`` divisible by its dp, ``restarts`` by its rp)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     coverage = gate_set_to_coverage(gates.cg_sqiswap(), device=device)
-    solvers = {
-        k: ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)
-        for k in KS
-    }
+    if mesh is None:
+        solvers = {
+            k: ChainSolver(build_ansatz(cycle_gates([gates.SQISWAP], k)).chain_gates, device=device)
+            for k in KS
+        }
+
+        def ks_fn(T):
+            return monodromy_ks_batch(coverage, T, device)
+
+    else:
+        ks_fn, solvers = _mesh_parts(coverage, mesh)
     T = torch.as_tensor(haar_sample(B, seed=seed)).to(device)
 
     # warm-up: one chunk per solver shape and one k-assignment, on other data
     warm_gen = torch.Generator(device=device)
     warm_gen.manual_seed(seed + 1)
     T_warm = torch.as_tensor(haar_sample(chunk, seed=seed + 1)).to(device)
-    monodromy_ks_batch(coverage, T_warm, device)
+    ks_fn(T_warm)
     for s in solvers.values():
         s.solve(_random_x0(chunk, restarts, s.n_params, warm_gen, device), T_warm)
     _sync(device)
@@ -114,7 +151,7 @@ def decompose_haar(
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    ks = np.maximum(monodromy_ks_batch(coverage, T, device), 2)
+    ks = np.maximum(ks_fn(T), 2)
     t1 = time.perf_counter()
     losses = np.full(B, np.inf)
     pending = []

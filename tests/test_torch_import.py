@@ -68,3 +68,18 @@ def test_transpilation_path_modules_are_checked():
         "slam_decomposition_torch.tools.headline",
     }
     assert path <= set(MODULES)
+
+
+def test_mesh_and_utility_modules_are_checked():
+    """The mesh, the entry points, the profiling and plotting utilities and
+    the scaling tool are among those imported without jax above."""
+    mesh = {
+        "slam_decomposition_torch.parallel.mesh",
+        "slam_decomposition_torch.parallel.launch",
+        "slam_decomposition_torch.graft_entry",
+        "slam_decomposition_torch.utils.profiling",
+        "slam_decomposition_torch.utils.visualize",
+        "slam_decomposition_torch.tools.scaling_curve",
+        "slam_decomposition_torch.tools.mesh_readings",
+    }
+    assert mesh <= set(MODULES)

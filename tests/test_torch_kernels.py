@@ -117,6 +117,36 @@ def test_polish_kernel_matches_plain(dev, k, L):
     assert (c - ck.square_cost(xp, T, g64))[ok].abs().max().item() <= 1e-13
 
 
+@pytest.mark.parametrize("k", [2, 3, 12, 13])
+def test_kernels_at_zero_iterations(dev, k):
+    """At a zero count each kernel launches and leaves x bit for bit (the
+    polish: its angles reduced mod 4 pi), with ||r||^2 of that x; the mesh's
+    local solve (lm_iters=0) and polisher (adam_iters=0, lm32_iters=0) run
+    on them (k = 13: the depth-generic programs)."""
+    from slam_decomposition_torch.opt.gauss_newton import ChainSolver
+
+    g64, g32, T, T32, x0 = _inputs(k, dev, seed=3, L=509)
+    before = ck.launch_counts()
+    assert torch.equal(ck.adam_chain(x0, T32, g32, ck.adam_schedule(0, device=dev)), x0)
+    xl, fl = ck.lm_chain(x0, T32, g32, 0)
+    assert torch.equal(xl, x0)
+    _, fl_ref = ck.lm_chain_ref(x0, T32, g32, 0)
+    assert torch.allclose(fl, fl_ref, rtol=1e-5, atol=1e-6)
+    x64 = x0.double().contiguous() + 4 * math.pi
+    xp, fp = ck.polish_chain(x64, T, g64, 0)
+    xp_ref, fp_ref = ck.polish_chain_ref(x64, T, g64, 0)
+    assert torch.allclose(xp, xp_ref, rtol=0, atol=1e-14)
+    assert torch.allclose(fp, fp_ref, rtol=1e-12, atol=1e-14)
+    assert ck.launch_counts() == {name: n + 1 for name, n in before.items()}
+    # the solvers at zero counts, on the kernels
+    a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    x0s = x0.double().view(-1, 1, a.n_params)[:64].expand(64, 2, a.n_params).contiguous()
+    xs, c = ChainSolver(a.chain_gates, device=dev, lm_iters=0).solve(x0s, T[:64])
+    assert torch.allclose(c, ck.square_cost(xs, T[:64], g64), rtol=0, atol=1e-13)
+    xc, cc = ChainSolver(a.chain_gates, device=dev, adam_iters=0, lm32_iters=0).polish_cert(xs, T[:64], iters=0)
+    assert torch.equal(xc, xs) and torch.equal(cc, c)
+
+
 def test_generic_program_matches_the_k12_instance(dev):
     """At K = 12 the depth-generic programs' C entries (which the wrappers
     take from K = 13) against the depth-12 instances on the same lanes:

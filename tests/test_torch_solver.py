@@ -24,6 +24,15 @@ from slam_decomposition_torch.pipeline import decompose_haar
 B, R = 16, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one intra-op thread beside the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("k", [2, 3])
 def test_solve_certifies_the_same_targets_as_jax(k):
     ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], k))
@@ -75,3 +84,88 @@ def test_decompose_haar_certifies_every_target():
     assert r.n_certified == 128
     assert set(r.k_histogram()) <= {2, 3} and sum(r.k_histogram().values()) == 128
     assert set(r.times) == {"ranges", "solve", "rescue", "total"}
+
+
+# ---------------------------------------------------------------- zero counts
+# The JAX mesh builds a local solver with lm_iters=0 and a polisher with
+# adam_iters=0, lm32_iters=0 (parallel/mesh.py:187-203); make_solver then
+# skips the phase: x passes through, and at lm_iters=0 the result is the
+# rank winner with its f64 cost (gauss_newton.py:536-560).
+
+
+def _zero_inputs(k=2, B=6, R=3, seed=5):
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+
+    a = build_ansatz(cycle_gates([gates.SQISWAP], k))
+    T = torch.as_tensor(haar_sample(B, seed=seed))
+    x0 = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2 * np.pi, (B, R, a.n_params)))
+    return a, x0, T
+
+
+def test_zero_iterations_leave_x_unchanged_on_the_plain_versions():
+    from slam_decomposition_torch.ops import chain_kernels as ck
+
+    a, x0, T = _zero_inputs()
+    g64 = torch.as_tensor(a.chain_gates)
+    g32 = g64.to(torch.complex64)
+    x32 = x0[:, 0].float().contiguous()
+    T32 = T.to(torch.complex64)
+    sched = ck.adam_schedule(0)
+    assert sched.shape == (0, 3)
+    assert torch.equal(ck.adam_chain(x32, T32, g32, sched), x32)
+    xa, cost = ck.adam_chain(x32, T32, g32, sched, with_cost=True)
+    assert torch.equal(xa, x32) and torch.equal(cost, ck.square_cost(x32, T32, g32))
+    xl, fl = ck.lm_chain(x32, T32, g32, 0)
+    r = ck.phase_residual(x32, T32, g32)
+    assert torch.equal(xl, x32) and torch.equal(fl, (r * r).sum(-1))
+    x64 = x0[:, 0].contiguous() + 4 * np.pi  # the polish reduces the angles mod 4 pi
+    xp, fp = ck.polish_chain(x64, T, g64, 0)
+    r64 = ck.phase_residual(ck.reduce_angles(x64), T, g64)
+    assert torch.equal(xp, ck.reduce_angles(x64)) and torch.equal(fp, (r64 * r64).sum(-1))
+    # polish_cert at 0 hands x back as it is, with the certificate of its residual
+    solver = ChainSolver(a.chain_gates, device="cpu", lm_iters=0)
+    xc, c = solver.polish_cert(x64, T)
+    assert torch.equal(xc, x64)
+    np.testing.assert_allclose(c.numpy(), solver.certify(x64, T).numpy(), atol=1e-14)
+
+
+@pytest.mark.parametrize("zero", ["adam_iters", "lm32_iters", "lm_iters"])
+def test_a_zero_count_skips_its_phase(zero):
+    """Each zero count gives the solve without that phase: the other phases'
+    plain versions composed by hand."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+
+    a, x0, T = _zero_inputs(k=3, seed=6)
+    iters = {"adam_iters": 40, "lm32_iters": 4, "lm_iters": 4, zero: 0}
+    solver = ChainSolver(a.chain_gates, device="cpu", **iters)
+    xs, c = solver.solve(x0, T)
+    B, R, n = x0.shape
+    g64 = torch.as_tensor(a.chain_gates)
+    g32 = g64.to(torch.complex64)
+    t32 = T.to(torch.complex64).repeat_interleave(R, dim=0)
+    xa = x0.reshape(B * R, n).float()
+    if iters["adam_iters"]:
+        xa = ck.adam_loop(lambda x: ck.square_cost(x, t32, g32), xa, ck.adam_schedule(iters["adam_iters"]))
+    if iters["lm32_iters"]:
+        xa, _ = ck.lm_chain_ref(xa, t32, g32, iters["lm32_iters"])
+    r = ck.phase_residual(xa, t32, g32)
+    best = torch.argmin((r * r).sum(-1).view(B, R), dim=1)
+    xw = xa.view(B, R, n)[torch.arange(B), best].double()
+    if iters["lm_iters"]:
+        xw, _ = ck.polish_chain_ref(xw, T, g64, iters["lm_iters"])
+    assert torch.equal(xs, xw)
+    np.testing.assert_allclose(c.numpy(), ck.square_cost(xw, T, g64).numpy(), atol=1e-14)
+
+
+def test_zero_counts_match_jax():
+    """All three at 0: JAX returns the restart of least f32 cost at x0, cast
+    to f64, with its f64 cost; so does the port, bit for bit in x."""
+    a, x0, T = _zero_inputs(B=8, R=4, seed=8)
+    ja = jtemplates.build_ansatz(jtemplates.cycle_gates([jgates.SQISWAP], 2))
+    js = jax.jit(jmake_solver(ja.eval_fn, ja.n_params, adam_iters=0, lm32_iters=0, lm_iters=0,
+                              chain_gates=ja.chain_gates, adam_backend="xla"))
+    xj, lj = js(jnp.asarray(x0.numpy()), jcplx.from_numpy(T.numpy()))
+    xt, lt = ChainSolver(a.chain_gates, device="cpu", adam_iters=0, lm32_iters=0, lm_iters=0).solve(x0, T)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-12)
