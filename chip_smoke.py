@@ -186,8 +186,22 @@ Phases, one line each (more for the build report):
      zero-iteration polish at (a)'s 10000 lanes and (b)'s 1024, and (b)'s
      production shard (2048 Adam and LM lanes, 1024 polish lanes) with
      phase 3's limits;
- 17. result: a JSON line of the kernels (launches summed over the counted
-     runs of phases 4 to 16, the mesh ranks' included) and the whole run's
+ 17. the studies (tools/ ported from the JAX package's scripts), counted
+     like the main path: (a) make_solver(..., top_m=2) on one chunk of
+     10000 targets of each depth k = 2, 3 of phase 4's haar_sample(100000,
+     seed=456), R = 4: one launch of Adam's cost instance, of the LM at
+     10000 x 2 lanes and of the polish a k, every loss the f64 square cost
+     of its x, top_m=4 (= R) equal to top_m=None bit for bit, each k's
+     certified share and seconds at top_m 0 and 2; then, on the same inputs,
+     Adam's cost instance at the 40000 lanes and the LM at the 20000 kept
+     lanes against their plain versions with phase 3's limits; (b)
+     tools/profile_solver.profile at B = 1000, k = 2: the phase split by
+     subtraction beside the kernels' own CUDA-event times; (c)
+     tools/bench_analytic.bench at CH = 10000: the variational solve, the
+     analytic init + polish and the init alone, timed, with the certified
+     counts and every loss the f64 cost of its x;
+ 18. result: a JSON line of the kernels (launches summed over the counted
+     runs of phases 4 to 17, the mesh ranks' included) and the whole run's
      seconds, then the device line.
 
 Phase 3's Adam limit (5e-5 after 25 steps on 99.5% of lanes) was read at
@@ -410,6 +424,8 @@ FRONTIER_RECOMPUTE_ATOL = 1e-12  # a certified loss against the CPU's f64 Makhli
 # scripts/headline_benchmarks.py main(16, 1, 1, 20) on the CPU
 ZERO_POLISH_ATOL = 1e-12  # the zero-iteration polish: its x (angles mod 4 pi) and ||r||^2 against the plain version's
 MESH_RANKS = 4  # phase 16 (b): ranks of the dry run, all on the one card (dp = 2, rp = 2)
+TOPM_M = 2  # phase 17 (a): restarts of each target that enter the f32 LM
+PROFILE_B, ANALYTIC_CH = 1000, 10_000  # phase 17 (b), (c)
 HEADLINE_REDUCED = (16, 1, 1, 20)
 HEADLINE_JAX = {
     "SWAP": {"basic": 2.5, "optimized": 2.25},
@@ -1835,6 +1851,123 @@ def phase_mesh(card, counted, main, stats):
     zero_polish_timing(stats, "k2_zero_mesh4x1", bl)
 
 
+def topm_parity(stats, k, x0, lanes_t, T, g32, sched, m=TOPM_M):
+    """Phase 17 (a)'s kernels against their plain versions on its own
+    inputs: Adam's cost instance at the B * R lanes (its x the default
+    instance's bit for bit, its cost the plain cost of that x, and the x
+    held to the plain Adam as phase 3 does), then the LM at the B * m lanes
+    ``keep_top_m`` keeps. Fills stats under "k<k>_topm_cost" and
+    "k<k>_topm"."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import gather_restarts, keep_top_m
+    from slam_decomposition_torch.utils import mfu
+
+    L = x0.shape[0]
+    s_lane = sched[:ADAM_PARITY_ITERS].contiguous()
+    d = (ck.adam_chain(x0, lanes_t, g32, s_lane) - ck.adam_chain_ref(x0, lanes_t, g32, s_lane)).abs().amax(1)
+    frac = (d <= ADAM_ATOL).float().mean().item()
+    (xc, cost), ms = timed_ms(lambda: ck.adam_chain(x0, lanes_t, g32, sched, with_cost=True))
+    (xr, cost_ref), plain_ms = timed_ms(lambda: ck.adam_chain_ref(x0, lanes_t, g32, sched, with_cost=True))
+    same = torch.equal(xc, ck.adam_chain(x0, lanes_t, g32, sched))
+    cerr = (cost - ck.square_cost(xc, lanes_t, g32)).abs().max().item()
+    dfrac = abs((cost < 1e-2).float().mean().item() - (cost_ref < 1e-2).float().mean().item())
+    label = f"k{k}_topm"
+    print(f"[parity] adam_chain with_cost {label} L={L}: {ADAM_PARITY_ITERS} steps max|dx| {d.max().item():.3e}, "
+          f"{frac:.5f} of lanes within {ADAM_ATOL:g} (need >= {ADAM_LANE_FRAC}); x equal to the default instance's: "
+          f"{same}; max|cost - plain cost of its x| {cerr:.3e} (need <= {ADAM_WITH_COST_ATOL:g}); |d frac(cost<1e-2)| "
+          f"{dfrac:.4f} (need <= {ADAM_COST_FRAC_TOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    check(frac >= ADAM_LANE_FRAC and same and cerr <= ADAM_WITH_COST_ATOL and dfrac <= ADAM_COST_FRAC_TOL,
+          f"adam_chain with_cost {label} disagrees with its plain version")
+    st = stats["adam_chain"]
+    st["max_abs_err"] = max(st["max_abs_err"], d.max().item())
+    st[f"{label}_cost"] = {"lanes": L, "ms": ms, "plain_ms": plain_ms, "bound": bound_line(
+        "adam_chain with_cost", label, mfu.adam_launch(k, L, sched.shape[0], with_cost=True), ms)}
+
+    B, R = T.shape[0], L // T.shape[0]
+    xg = gather_restarts(xc.view(B, R, -1), keep_top_m(cost.view(B, R), m))
+    tg = T.to(torch.complex64).repeat_interleave(m, dim=0).contiguous()
+    (_, fl), ms = timed_ms(lambda: ck.lm_chain(xg, tg, g32))
+    (_, fl_ref), plain_ms = timed_ms(lambda: ck.lm_chain_ref(xg, tg, g32))
+    ok = torch.isclose(fl, fl_ref, rtol=LM_RTOL, atol=LM_ATOL).float().mean().item()
+    err = (fl - fl_ref).abs().max().item()
+    print(f"[parity] lm_chain {label} L={xg.shape[0]}: max|d||r||^2| {err:.3e}, {ok:.5f} of lanes within rtol "
+          f"{LM_RTOL:g} atol {LM_ATOL:g} (need >= {LM_LANE_FRAC}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    check(ok >= LM_LANE_FRAC, f"lm_chain {label} disagrees with its plain version")
+    st = stats["lm_chain"]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    fresh = fresh_iterations(ck.lm_chain, xg, tg, g32, ck.LM32_ITERS)
+    print(f"[bound] lm_chain {label}: {fresh:.3f} of {ck.LM32_ITERS} iterations per lane rebuild J")
+    st[label] = {"lanes": xg.shape[0], "ms": ms, "plain_ms": plain_ms,
+                 "bound": bound_line("lm_chain", label, mfu.lm_launch(k, xg.shape[0], ck.LM32_ITERS, fresh), ms)}
+
+
+def phase_studies(card, counted, stats, main):
+    """(a) make_solver's top_m at the main path's shapes; (b) the solve's
+    phase split (tools/profile_solver.py); (c) the analytic warm start
+    against the variational solve (tools/bench_analytic.py)."""
+    from slam_decomposition_torch.models.gates import SQISWAP
+    from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
+    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.opt.gauss_newton import make_solver
+    from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.tools import bench_analytic, profile_solver
+
+    dev = torch.device("cuda")
+    U = haar_sample(B, seed=SEED)
+    one = {"adam_chain": 1, "lm_chain": 1, "polish_chain": 1}
+    for k in (2, 3):
+        a = build_ansatz(cycle_gates([SQISWAP], k))
+        T = torch.as_tensor(U[np.where(main.ks == k)[0][:CHUNK]]).to(dev).contiguous()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + k)
+        x0 = torch.rand((CHUNK, RESTARTS, a.n_params), generator=gen, device=dev, dtype=torch.float64) * (2 * math.pi)
+        solvers = {m: make_solver(a.eval_fn, a.n_params, chain_gates=a.chain_gates, device=dev, top_m=m)
+                   for m in (None, TOPM_M, RESTARTS)}
+        runs = {}
+        for m, solver in solvers.items():
+            solver.solve(x0, T)  # warm
+            (x, loss), wall, launches, general, _ = counted(lambda: solver.solve(x0, T))
+            lanes = ck.lane_counts()
+            want = {"adam_chain": [CHUNK * RESTARTS], "lm_chain": [CHUNK * (m or RESTARTS)], "polish_chain": [CHUNK]}
+            gap = (loss - solver.certify(x, T)).abs().max().item()
+            runs[m] = (x, loss, wall)
+            print(f"[studies] (a) k={k} top_m={m}: certified {(loss <= THRESH).float().mean().item():.5f} of "
+                  f"{CHUNK}; {wall:.4f} s; launches {launches}, lanes {lanes}; max|loss - f64 cost of its x| "
+                  f"{gap:.3e} (need <= {CERT_ATOL:g}) [{card}]")
+            check(launches == one and general == 0 and lanes == want,
+                  f"top_m={m} k={k}: launches {launches}, lanes {lanes}, general {general}; expected {one}, {want}, 0")
+            check(gap <= CERT_ATOL, f"top_m={m} k={k}: a loss is not the f64 cost of its x")
+        same = torch.equal(runs[None][0], runs[RESTARTS][0]) and torch.equal(runs[None][1], runs[RESTARTS][1])
+        print(f"[studies] (a) k={k}: top_m={RESTARTS} (= R) equal to top_m=None bit for bit (x and losses): {same}; "
+              f"top_m={TOPM_M} {runs[TOPM_M][2]:.4f} s against {runs[None][2]:.4f} s, certified "
+              f"{(runs[TOPM_M][1] <= THRESH).sum().item()} against {(runs[None][1] <= THRESH).sum().item()}")
+        check(same, f"k={k}: top_m=R differs from top_m=None")
+        lanes_t = T.to(torch.complex64).repeat_interleave(RESTARTS, 0).contiguous()
+        topm_parity(stats, k, x0.view(-1, a.n_params).float().contiguous(), lanes_t, T,
+                    torch.as_tensor(a.chain_gates).to(dev, torch.complex64), ck.adam_schedule(device=dev))
+
+    reps = profile_solver.REPS
+    prof, wall, launches, general, _ = counted(lambda: profile_solver.profile(PROFILE_B, 2, dev))
+    print(profile_solver.table(prof, card), end="")
+    n = 3 * (1 + 2 * reps)  # a variant: one warm, reps timed and reps instrumented solves
+    check(launches == {name: n for name in REPLACES} and general == 0,
+          f"profile_solver: launches {launches}, general {general}; expected {n} each, 0")
+    print(f"[studies] (b) profile_solver B={PROFILE_B} k=2: {wall:.1f} s, launches {launches}")
+
+    rows, wall, launches, general, _ = counted(lambda: bench_analytic.bench(ANALYTIC_CH, dev))
+    for r in rows:
+        print(f"[studies] (c) bench_analytic k={r['k']} chunk={r['chunk']} [{card}]: variational "
+              f"{r['variational_s'] * 1e3:.3f} ms ({r['variational_certified']} certified) | analytic "
+              f"{r['analytic_s'] * 1e3:.3f} ms ({r['analytic_certified']} certified, init {r['init_s'] * 1e3:.3f} ms) | "
+              f"speedup x{r['speedup']:.2f}; max|loss - f64 cost of its x| {r['variational_loss_vs_f64']:.3e} / "
+              f"{r['analytic_loss_vs_f64']:.3e} (need <= {CERT_ATOL:g})")
+        check(max(r["variational_loss_vs_f64"], r["analytic_loss_vs_f64"]) <= CERT_ATOL,
+              f"bench_analytic k={r['k']}: a loss is not the f64 cost of its x")
+    want = {"adam_chain": 8, "lm_chain": 8, "polish_chain": 16}  # a k: 4 variational solves, 4 analytic
+    check(launches == want and general == 0, f"bench_analytic: launches {launches}, general {general}; expected {want}")
+    print(f"[studies] (c) bench_analytic: {wall:.1f} s, launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test runs on a GPU only", file=sys.stderr)
@@ -1871,8 +2004,10 @@ def main() -> int:
         timed("slam", phase_slam, card, counted, stats)
         timed("pd_fit", phase_pd_fit, card, counted, stats)
         timed("mesh", phase_mesh, card, counted, main, stats)
+        timed("studies", phase_studies, card, counted, stats, main)
         print(f"[result] launches of the API, quarter-, eighth- and sixteenth-iSwap, parallel-drive, depth, "
-              f"general-solver, driven, SLAM, driven-fit and mesh runs (the mesh ranks' included): {counted.total}")
+              f"general-solver, driven, SLAM, driven-fit, mesh (the mesh ranks' included) and studies runs: "
+              f"{counted.total}")
         print(f"[result] seconds by phase: {seconds}")
         counts = {name: counts[name] + t_counts[name] + counted.total[name] for name in counts}
     except (SmokeFailure, ImportError, RuntimeError, subprocess.CalledProcessError) as e:

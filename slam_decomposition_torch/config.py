@@ -69,6 +69,13 @@ def transpile_dir() -> pathlib.Path:
     return cache_dir("slam_transpile")
 
 
+def studies_dir() -> pathlib.Path:
+    """Where the study tools (``tools/tune_solver.py`` and the others ported
+    from the JAX package's scripts) write their tables, JSON and figures
+    (figures under ``figures/``)."""
+    return cache_dir("slam_studies")
+
+
 def _env(name: str, default, cast):
     v = os.environ.get(name)
     return cast(v) if v is not None else default

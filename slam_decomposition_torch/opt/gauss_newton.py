@@ -10,6 +10,10 @@ best restart per target with its cost:
 2. f32 LM iterations on every restart, then a ranking of the restarts;
 3. LM iterations in f64 from the best restart, and the final cost.
 
+With ``top_m`` = m (JAX gauss_newton.py:240-249, 489-508) the restarts
+are ranked by their cost after Adam and only each target's best m enter
+step 2 (``keep_top_m``).
+
 Two paths compute this, chosen by rule when the solver is built
 (``make_solver``'s docstring): ``ChainSolver`` runs the three steps as the
 three chain kernels (``ops.chain_kernels``: CUDA kernels on CUDA tensors,
@@ -70,6 +74,29 @@ def makhlin_residual(eval_fn, x: torch.Tensor, tgt: torch.Tensor) -> torch.Tenso
 RESIDUALS = {"phase": phase_residual, "makhlin": makhlin_residual}
 
 
+def keep_top_m(cost: torch.Tensor, m: int) -> torch.Tensor:
+    """cost (B, R) -> (B, m) restart indices of each target's m smallest
+    costs, in ascending cost and, on ties, the lower index first: the
+    selection of JAX ``lax.top_k(-cost, m)``. A NaN cost ranks last."""
+    return torch.argsort(cost, dim=1, stable=True)[:, :m]
+
+
+def gather_restarts(xs: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """xs (B, R, n), keep (B, m) -> (B * m, n) contiguous: the kept restarts
+    of each target, in ``keep``'s order."""
+    B, m = keep.shape
+    return xs.gather(1, keep[..., None].expand(B, m, xs.shape[-1])).reshape(B * m, -1).contiguous()
+
+
+def _checked_top_m(top_m: Optional[int], R: int) -> int:
+    """The restarts per target that enter the f32 LM: R without a cut."""
+    if top_m is None:
+        return R
+    if not 1 <= top_m <= R:
+        raise ValueError(f"top_m must lie in 1..{R} (the restarts per target), got {top_m}")
+    return top_m
+
+
 def _best_restart(xs: torch.Tensor, fs: torch.Tensor) -> torch.Tensor:
     """xs (B, R, n), fs (B, R) -> (B, n): each target's restart of smallest f."""
     best = torch.argmin(fs, dim=1)
@@ -96,9 +123,10 @@ class GeneralSolver:
     def __init__(
         self, eval_fn: Callable, n_params: int, adam_iters: int = 100, lm_iters: int = 6, lm32_iters: int = 8,
         adam_lr: float = 0.1, lower=None, upper=None, residual: str = "phase",
-        final_cost_fn: Optional[Callable] = None, device=DEFAULT_DEVICE,
+        final_cost_fn: Optional[Callable] = None, device=DEFAULT_DEVICE, top_m: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        self.top_m = top_m
         self.eval_fn = eval_fn
         self.n_params = n_params
         self.lm_iters, self.lm32_iters = lm_iters, lm32_iters
@@ -160,15 +188,22 @@ class GeneralSolver:
     # ---------------- the solver's interface
 
     def rank(self, x0s: torch.Tensor, tgt: torch.Tensor):
-        """Steps 1-2: x0s (B, R, n), tgt (B, d, d) -> (xs (B, R, n) f32 after
-        Adam and the f32 LM, scores (B, R) f32: the cost of each restart,
-        smallest best)."""
+        """Steps 1-2: x0s (B, R, n), tgt (B, d, d) -> (xs (B, M, n) f32 after
+        Adam and the f32 LM, scores (B, M) f32: the cost of each restart,
+        smallest best). M = R, or with ``top_m`` the m restarts of least
+        ``adam_cost`` after Adam (JAX ranks by it on this path,
+        gauss_newton.py:502-506), in ascending order of it."""
         B, R, n = x0s.shape
-        t32 = tgt.to(torch.complex64).repeat_interleave(R, dim=0)
-        xs = self._adam(x0s.reshape(B * R, n).float(), t32)
+        M = _checked_top_m(self.top_m, R)
+        t32 = tgt.to(torch.complex64)
+        tR = t32.repeat_interleave(R, dim=0)
+        xs = self._adam(x0s.reshape(B * R, n).float(), tR)
+        if self.top_m is not None:
+            keep = keep_top_m(self.adam_cost(xs, tR).view(B, R), M)
+            xs, tR = gather_restarts(xs.view(B, R, n), keep), t32.repeat_interleave(M, dim=0)
         if self.lm32_iters > 0:
-            xs, _ = self._lm(xs, t32, self.lm32_iters)
-        return xs.view(B, R, n), self.cost(xs, t32).view(B, R)
+            xs, _ = self._lm(xs, tR, self.lm32_iters)
+        return xs.view(B, M, n), self.cost(xs, tR).view(B, M)
 
     def solve(self, x0s: torch.Tensor, tgt: torch.Tensor):
         """x0s (B, R, n) f64, tgt (B, d, d) complex128 -> (x (B, n) f64,
@@ -215,8 +250,10 @@ class ChainSolver:
     def __init__(
         self, chain_gates: np.ndarray, device=DEFAULT_DEVICE, adam_iters: int = ck.ADAM_ITERS,
         lm_iters: int = ck.LM_ITERS, lm32_iters: int = ck.LM32_ITERS, adam_lr: float = ck.ADAM_LR,
+        top_m: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        self.top_m = top_m
         self.gates64 = chain_gates_from_numpy(chain_gates, self.device)
         self.gates32 = self.gates64.to(torch.complex64)
         self.k = self.gates64.shape[0]
@@ -226,14 +263,25 @@ class ChainSolver:
         self.sched = ck.adam_schedule(adam_iters, device=self.device, lr=adam_lr)
 
     def rank(self, x0s: torch.Tensor, tgt: torch.Tensor):
-        """Steps 1-2: x0s (B, R, n), tgt (B, 4, 4) -> (xs (B, R, n) f32 after
-        the Adam and LM kernels, scores (B, R) f32: each restart's ||r||^2 =
-        8 - 2|tr|, monotone in the square cost, smallest best)."""
+        """Steps 1-2: x0s (B, R, n), tgt (B, 4, 4) -> (xs (B, M, n) f32 after
+        the Adam and LM kernels, scores (B, M) f32: each restart's ||r||^2 =
+        8 - 2|tr|, monotone in the square cost, smallest best). M = R, or
+        with ``top_m`` the m restarts of least square cost after Adam (the
+        Adam kernel's cost instance), in ascending order of it; the LM
+        kernel then runs on B * m lanes."""
         B, R, n = x0s.shape
-        t32 = tgt.to(torch.complex64).repeat_interleave(R, dim=0).contiguous()
-        xs = ck.adam_chain(x0s.reshape(B * R, n).float().contiguous(), t32, self.gates32, self.sched)
-        xs, fs = ck.lm_chain(xs, t32, self.gates32, self.lm32_iters)
-        return xs.view(B, R, n), fs.view(B, R)
+        M = _checked_top_m(self.top_m, R)
+        t32 = tgt.to(torch.complex64)
+        tR = t32.repeat_interleave(R, dim=0).contiguous()
+        x = x0s.reshape(B * R, n).float().contiguous()
+        if self.top_m is None:
+            xs = ck.adam_chain(x, tR, self.gates32, self.sched)
+        else:
+            xs, cost = ck.adam_chain(x, tR, self.gates32, self.sched, with_cost=True)
+            xs = gather_restarts(xs.view(B, R, n), keep_top_m(cost.view(B, R), M))
+            tR = t32.repeat_interleave(M, dim=0).contiguous()
+        xs, fs = ck.lm_chain(xs, tR, self.gates32, self.lm32_iters)
+        return xs.view(B, M, n), fs.view(B, M)
 
     def solve(self, x0s: torch.Tensor, tgt: torch.Tensor):
         """x0s (B, R, n) f64, tgt (B, 4, 4) complex128 -> (x (B, n) f64,
@@ -286,7 +334,7 @@ def takes_kernels(chain_gates, residual="phase", final_cost_fn=None, lower=None)
 def make_solver(
     eval_fn: Callable, n_params: int, adam_iters: int = 100, lm_iters: int = 6, lm32_iters: int = 8,
     adam_lr: float = 0.1, lower=None, upper=None, residual: str = "phase",
-    final_cost_fn: Optional[Callable] = None, chain_gates=None, device=DEFAULT_DEVICE,
+    final_cost_fn: Optional[Callable] = None, chain_gates=None, device=DEFAULT_DEVICE, top_m: Optional[int] = None,
 ):
     """The solver of one template: an object with ``solve(x0s (B, R, n), tgt
     (B, d, d)) -> (x (B, n), cost (B,))``, ``with_history``, ``polish``,
@@ -299,6 +347,9 @@ def make_solver(
     square cost in the ranking of restarts and the returned costs.
     ``lower`` / ``upper`` clamp every iterate. ``chain_gates``: the
     (k, 4, 4) constants of a plain u3 chain (``Ansatz.chain_gates``).
+    ``top_m``: None (every restart enters the f32 LM), or m in 1..R, checked
+    when the solve runs: only each target's m restarts of least cost after
+    Adam enter it (``keep_top_m``), on both paths.
 
     Routing, by rule and not by a failed launch (``takes_kernels``; JAX
     gauss_newton.py:278-284 routes the same templates to its Pallas
@@ -308,7 +359,7 @@ def make_solver(
     tensors). Everything else, a chain of depth 80 or more included (the
     kernels cover depths 1..79), takes the general path (``GeneralSolver``),
     the same algorithm in plain PyTorch."""
-    iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr)
+    iters = dict(adam_iters=adam_iters, lm_iters=lm_iters, lm32_iters=lm32_iters, adam_lr=adam_lr, top_m=top_m)
     if takes_kernels(chain_gates, residual, final_cost_fn, lower):
         return ChainSolver(chain_gates, device, **iters)
     return GeneralSolver(

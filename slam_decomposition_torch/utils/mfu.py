@@ -166,13 +166,14 @@ def _bound(f32: float, f64: float, nbytes: float) -> dict:
     }
 
 
-def adam_launch(k: int, lanes: int, iters: int) -> dict:
+def adam_launch(k: int, lanes: int, iters: int, with_cost: bool = False) -> dict:
     """{"flops", "bytes", "bound_ms", "bound_by"} of one adam_chain launch:
     reads x0 (n f32) and T (16 complex64) per lane, the gates and the
-    schedule, writes x."""
+    schedule, writes x; ``with_cost``: also one chain evaluation a lane at
+    the final x and its cost written."""
     n = 6 * (k + 1)
-    nbytes = lanes * (2 * n + 32) * 4 + k * 128 + iters * 12
-    return _bound(lanes * iters * adam_iter_flops(k), 0.0, nbytes)
+    nbytes = lanes * (2 * n + 32 + with_cost) * 4 + k * 128 + iters * 12
+    return _bound(lanes * (iters * adam_iter_flops(k) + with_cost * chain_flops(k)), 0.0, nbytes)
 
 
 def lm_launch(k: int, lanes: int, iters: int, fresh: float | None = None) -> dict:

@@ -83,3 +83,15 @@ def test_mesh_and_utility_modules_are_checked():
         "slam_decomposition_torch.tools.mesh_readings",
     }
     assert mesh <= set(MODULES)
+
+
+def test_study_tools_are_checked():
+    """The study tools ported from the JAX package's scripts are among those
+    imported without jax above."""
+    tools = {
+        f"slam_decomposition_torch.tools.{name}"
+        for name in ("tune_solver", "profile_solver", "bench_analytic", "qft64_pass_timing", "parity_diagnostics",
+                     "fidelity_attribution", "driven_ab", "cost_function_comparison", "haar_improvements",
+                     "extended_volumes_figure", "distill_speed_limit")
+    }
+    assert tools <= set(MODULES)
