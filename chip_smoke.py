@@ -8,13 +8,15 @@ Phases, one line each (more for the build report):
      nvcc, print the build seconds, ptxas registers / spills and the
      resident blocks and warps per SM (CUDA occupancy calculator) of each
      kernel instance (Adam with and without the cost, the LM and the polish
-     at k = 1..12: 48 instances; and the four depth-generic programs, in
-     which k is a runtime argument, at k = 12 and at depth_deep()'s deep
-     depths to 79, with their lanes a block) with its shared memory a block,
-     static or dynamic; every instance must build without spills and with
-     no stack frame beyond the math library's sincos scratch, and keep 12
-     warps per SM resident, or every block its shared memory leaves room for
-     where that is fewer;
+     at k = 1..12: 48 instances; and the depth-generic programs, in which k
+     is a runtime argument: Adam's two, the LM's and the polish's one a slot
+     bucket (LM_GEN_BUCKETS) and their gate-list kernels; at k = 12 and at
+     depth_deep()'s deep depths to 79, with their lanes a block) with its
+     shared memory a block, static or dynamic; every instance must build
+     without spills and with no stack frame beyond the math library's sincos
+     scratch, and keep 12 warps per SM resident, or every block its shared
+     memory leaves room for where that is fewer (at least one; the generic
+     LM and polish: every block of their register cap, 8 or 4 lanes an SM);
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
@@ -243,6 +245,15 @@ SOURCES = {
 }
 # the depth-generic programs (K = 13..79), which the entry points above hand deep chains to
 GENERIC_SOURCES = {name: f"slam_decomposition_torch/csrc/{name}_generic.cu" for name in REPLACES}
+# the generic LM's and polish's slot buckets (csrc/lm_generic.cuh lm_gen_bucket): one kernel each
+LM_GEN_BUCKETS = (3, 4, 8, 16)
+
+
+def lm_gen_lanes_cap(k):
+    """The lanes an SM that the generic LM's and polish's register budget
+    holds at depth k (csrc/lm_generic.cuh lm_gen_lanes_cap: 8 to the
+    8-slot bucket, K <= 41, then 4)."""
+    return 8 if (6 * (k + 1) + 31) // 32 <= 8 else 4
 # stated tolerances (see each check for the reason; the readings they were
 # set from are in PERF.md)
 ADAM_PARITY_ITERS, ADAM_ATOL, ADAM_LANE_FRAC = 25, 5e-5, 0.995
@@ -483,16 +494,19 @@ def phase_build():
     print(f"[build] {info['seconds']:.1f} s nvcc -> {info['path'].name}")
     regs = _build.ptxas_summary(info["ptxas"])
     for entry, r in sorted(regs.items()):
-        m = re.search(r"([a-z_]+_kernel)(?:I(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", entry)
-        name = f"{m.group(1)}<{m.group(2) or 'k'}{', cost' if m.group(3) == '1' else ''}>" if m else entry
+        m = re.search(r"([a-z_]+_kernel)(?:I([fd])?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", entry)
+        # lm_gen_kernel<R, SB>: the generic LM (f) or polish (d) program of slot bucket SB
+        typ = {"f": "float, ", "d": "double, "}.get(m.group(2) or "", "") if m else ""
+        name = f"{m.group(1)}<{typ}{m.group(3) or 'k'}{', cost' if m.group(4) == '1' else ''}>" if m else entry
         print(f"[build] ptxas {name}: {r.get('registers')} registers, "
               f"{r.get('stack_frame')} B stack, {r.get('spill_stores')} B spill stores, "
               f"{r.get('spill_loads')} B spill loads")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and r.get("stack_frame", 1 << 30) <= STACK_MAX,
               f"{name} spills or keeps arrays in local memory")
     # Adam with and without the cost, the LM and the polish, each at every k
-    # of an instance, and each once as a depth-generic program
-    want = 4 * len(INSTANCE_KS) + 4
+    # of an instance; Adam's two depth-generic programs; the generic LM and
+    # polish once a slot bucket, and their two gate-list kernels
+    want = 4 * len(INSTANCE_KS) + 2 + 2 * len(LM_GEN_BUCKETS) + 2
     check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
     generic_ks = (12, *(k for k, path in depth_deep() if path == "kernels" and k > max(INSTANCE_KS)))
@@ -506,20 +520,14 @@ def phase_build():
                 # 12 resident warps, or where a block's shared memory leaves
                 # room for fewer (Adam from K = 9, the polish from K = 10, the
                 # generic programs' blocks of up to 227 KB), every block that
-                # room holds: the registers must not cost a resident block
-                need = min(12 // (o["threads"] // 32), o["room"])
+                # room holds: the registers must not cost a resident block.
+                # The generic LM and polish: every block of their register
+                # cap's lanes an SM that shared memory has room for
+                need = min(max(12 // (o["threads"] // 32), 1), o["room"])
+                if generic and name != "adam_chain":
+                    need = min(lm_gen_lanes_cap(k) // o["lanes"], o["room"])
                 check(o["blocks"] >= need, f"{name}<{k}> keeps {o['blocks']} blocks per SM resident, needs {need}")
     return regs
-
-
-def fresh_iterations(fn, x, T, g, iters):
-    """Mean number per lane of the LM iterations that rebuild J, A and b:
-    the first, and each after an accepted step. fn(x, T, g, i) runs the
-    first i iterations (the same ones for any count), so step i was
-    accepted iff ||r||^2 after i + 1 iterations is below that after i."""
-    f = [fn(x, T, g, i)[1] for i in range(iters)]
-    accepted = sum((f[i] < f[i - 1]).double() for i in range(1, iters))
-    return 1.0 + accepted.mean().item()
 
 
 def bound_line(name, label, bound, ms):
@@ -535,7 +543,7 @@ def phase_parity(stats, ks=(2, 3), targets=CHUNK, restarts=RESTARTS, tag="", gat
     chain of ``gate`` (default sqiSwap); fills stats[kernel] with max_abs_err
     and, under the label "k<k><tag>", lanes, ms, plain_ms and bound."""
     from slam_decomposition_torch.ops import chain_kernels as ck
-    from slam_decomposition_torch.tools.inputs import adam_ulp_spread, best_restart, kernel_inputs
+    from slam_decomposition_torch.tools.inputs import adam_ulp_spread, best_restart, fresh_iterations, kernel_inputs
     from slam_decomposition_torch.utils import mfu
 
     dev = torch.device("cuda")
@@ -1860,6 +1868,7 @@ def topm_parity(stats, k, x0, lanes_t, T, g32, sched, m=TOPM_M):
     "k<k>_topm"."""
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.opt.gauss_newton import gather_restarts, keep_top_m
+    from slam_decomposition_torch.tools.inputs import fresh_iterations
     from slam_decomposition_torch.utils import mfu
 
     L = x0.shape[0]

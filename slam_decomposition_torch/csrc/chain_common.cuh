@@ -57,6 +57,8 @@ template <> struct Eps<double> { static SLAM_HD double v() { return 1e-300; } };
 constexpr float kF32Tiny = 1.17549435e-38f;  // CG denominator guard
 constexpr float kF32Max = 3.40282347e+38f;
 constexpr int kCgExtra = 8;                   // CG runs N + 8 iterations
+// sm_90's shared memory: 228 KB an SM, 1 KB of it reserved per block
+constexpr size_t kSmemPerSm = 228 * 1024, kSmemReservedPerBlock = 1024;
 
 // ------------------------------------------------------------ complex
 
@@ -311,12 +313,16 @@ template <int S, class Th> struct HostTeam {
 
 // Chain depths with a kernel (ops/chain_kernels.py KERNEL_KS): 1..kInstMaxK
 // as one template instance each, kInstMaxK + 1..kMaxK through the
-// depth-generic programs, in which K is a runtime argument. kMaxK is the
-// deepest chain at which one block of each generic program (a warp of Adam
-// lanes, one LM or polish lane) fits in 227 KB of shared memory beside its
-// gate lists: at K = 80 the polish's one lane (124.7 KB) and its f32 and
-// f64 gate lists (105.0 KB) take 229.7 KB (generic_lanes, host_lanes.cpp
-// generic_shape, tests/test_torch_kernel_lanes.py).
+// depth-generic programs, in which K is a runtime argument. kMaxK = 79 was
+// the deepest chain at which the polish's one-lane block fit in 227 KB of
+// shared memory beside its f32 and f64 gate lists. Those lists are now in
+// device memory (lm_generic.cuh), so shared memory no longer stops the
+// depths there: the LM's and the polish's one-lane blocks would fit to
+// their last slot bucket's K = 84 (the polish's lane: 120.7 KB) and Adam's
+// unit, a warp of 8 lanes beside its gate lists, to K = 80 (227 KB
+// exactly; generic_lanes, host_lanes.cpp generic_shape,
+// tests/test_torch_kernel_lanes.py). kMaxK stays 79 all the same, for
+// every kernel alike: deeper chains are later work.
 constexpr int kInstMaxK = 12;
 constexpr int kMaxK = 79;
 
@@ -354,10 +360,9 @@ template <class S, class Kernel> cudaError_t allow_smem(Kernel* kernel) {
 }
 
 // Resident blocks per SM that a block of shared memory S leaves room for on
-// sm_90 (228 KB an SM, 1 KB of it reserved per block). Where it is below
+// sm_90 (kSmemPerSm, kSmemReservedPerBlock below). Where it is below
 // the register budget's block count, the kernels take it as that count:
 // a tighter register cap would buy spills and no more resident blocks.
-constexpr size_t kSmemPerSm = 228 * 1024, kSmemReservedPerBlock = 1024;
 template <class S> constexpr int kSmemBlocks = (int)(kSmemPerSm / (sizeof(S) + kSmemReservedPerBlock));
 constexpr int min_blocks(int regs, int smem) { return regs < smem ? regs : smem; }
 

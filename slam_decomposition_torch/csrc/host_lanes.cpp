@@ -49,12 +49,10 @@ template <int K> static void adam_any(const float* x0, const float* tgt, const f
                case 9: call(9); break; case 10: call(10); break; case 11: call(11); break; case 12: call(12); break; }
 // The depth-generic programs, on a 16-byte aligned buffer of one lane's
 // workspace, over as many lanes a block as the kernels take
-// (*_chain_generic.cu: chain_common.cuh generic_lanes).
+// (adam_chain_generic.cu: chain_common.cuh generic_lanes; the LM and the
+// polish: lm_generic.cuh lm_gen_block_lanes, in depth k's slot bucket).
 static int adam_gen_lanes(int k) {
   return generic_lanes(AdamGenWs::lane_bytes(k), adam_gen_gate_bytes(k), kAdamLanes, 32 / kAdamTeam);
-}
-template <typename R> static int lm_gen_lanes(int k) {
-  return generic_lanes(LmGenWs<R>::lane_bytes(k), lm_gen_gate_bytes<R>(k), kLmLanes, 1);
 }
 template <bool Cost> static void adam_gen(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int k, int L, float* xout, float* fout) {
   std::vector<GateNz<float>> G(k);
@@ -75,10 +73,13 @@ template <typename R> static void lm_gen(const R* x0, const R* tgt, const R* gat
   }
   std::vector<F4> buf(LmGenWs<R>::lane_bytes(k) / sizeof(F4));
   const LmGenWs<R> ws(reinterpret_cast<unsigned char*>(buf.data()), k);
-  HostTeam<kLmTeam, LmGenThread<R>> tm;
-  const int lanes = lm_gen_lanes<R>(k);
-  for (int lane = 0; lane < (L + lanes - 1) / lanes * lanes; ++lane)
-    lm_gen_team_io<R>(tm, ws, G.data(), GR.data(), x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  const int lanes = lm_gen_block_lanes<R>(k);
+  lm_gen_by_bucket(k, [&](auto sb) {
+    constexpr int SB = decltype(sb)::value;
+    HostTeam<kLmTeam, LmGenThread<R, SB>> tm;
+    for (int lane = 0; lane < (L + lanes - 1) / lanes * lanes; ++lane)
+      lm_gen_team_io<R, SB>(tm, ws, G.data(), GR.data(), x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  });
 }
 extern "C" {
 // fout may be null: then the instance without the final cost runs
@@ -109,10 +110,13 @@ void polish_host_generic(const double* x0, const double* tgt, const double* gate
   lm_gen<double>(x0, tgt, gates, iters, k, L, xout, fout);
 }
 // the generic blocks at depth k: kernel 0 Adam, 1 LM, 2 polish -> lanes a
-// block, bytes of one lane's workspace, bytes of the gate lists
-void generic_shape(int kernel, int k, int* lanes, long* lane_bytes, long* gate_bytes) {
-  if (kernel == 0) { *lanes = adam_gen_lanes(k); *lane_bytes = (long)AdamGenWs::lane_bytes(k); *gate_bytes = (long)adam_gen_gate_bytes(k); }
-  else if (kernel == 1) { *lanes = lm_gen_lanes<float>(k); *lane_bytes = (long)LmGenWs<float>::lane_bytes(k); *gate_bytes = (long)lm_gen_gate_bytes<float>(k); }
-  else { *lanes = lm_gen_lanes<double>(k); *lane_bytes = (long)LmGenWs<double>::lane_bytes(k); *gate_bytes = (long)lm_gen_gate_bytes<double>(k); }
+// block, bytes of one lane's workspace, bytes of the gate lists in the
+// block (0 for the LM and the polish: theirs are in device memory), and
+// the most lanes an SM the registers hold (the LM's and the polish's slot
+// bucket's cap; 0 for Adam, whose blocks shared memory limits)
+void generic_shape(int kernel, int k, int* lanes, long* lane_bytes, long* gate_bytes, int* cap) {
+  if (kernel == 0) { *lanes = adam_gen_lanes(k); *lane_bytes = (long)AdamGenWs::lane_bytes(k); *gate_bytes = (long)adam_gen_gate_bytes(k); *cap = 0; }
+  else if (kernel == 1) { *lanes = lm_gen_block_lanes<float>(k); *lane_bytes = (long)LmGenWs<float>::lane_bytes(k); *gate_bytes = 0; *cap = lm_gen_lanes_cap(lm_gen_bucket(k)); }
+  else { *lanes = lm_gen_block_lanes<double>(k); *lane_bytes = (long)LmGenWs<double>::lane_bytes(k); *gate_bytes = 0; *cap = lm_gen_lanes_cap(lm_gen_bucket(k)); }
 }
 }

@@ -45,6 +45,16 @@ def kernel_inputs(k: int, targets: int, restarts: int, dev, gate=None) -> dict:
     }
 
 
+def fresh_iterations(fn, x: torch.Tensor, T: torch.Tensor, g: torch.Tensor, iters: int) -> float:
+    """Mean number per lane of the LM iterations that rebuild J, A and b:
+    the first, and each after an accepted step. fn(x, T, g, i) runs the
+    first i iterations (the same ones for any count), so step i was
+    accepted iff ||r||^2 after i + 1 iterations is below that after i."""
+    f = [fn(x, T, g, i)[1] for i in range(iters)]
+    accepted = sum((f[i] < f[i - 1]).double() for i in range(1, iters))
+    return 1.0 + accepted.mean().item()
+
+
 def best_restart(xl: torch.Tensor, fl: torch.Tensor, restarts: int) -> torch.Tensor:
     """(targets, n) f64: of the f32 LM's (targets * restarts, n) results, each
     target's restart of smallest ||r||^2: what the solver hands to the polish."""

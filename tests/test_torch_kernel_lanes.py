@@ -8,9 +8,11 @@ code too; csrc/host_lanes.cpp runs them with a host C++ compiler. This
 checks the hand-derived gradient and Jacobian (including the phase-factor
 derivative), the LM / CG schedule and the polish's f64 residual on the CPU.
 The teams run block by block as the kernels cut the lanes; L = 37 leaves
-the last block partly filled (for the generic programs at every lanes-a-
-block their rule picks at the depths below). The launch glue and the device
-build are covered on the card (test_torch_kernels.py, chip_smoke.py)."""
+the last block partly filled (for the generic programs wherever their rule
+picks more than one lane a block at the depths below: Adam's 32 / 24 / 8,
+the polish's 7 at K = 21 and 2 at 24). The launch glue
+and the device build are covered on the card (test_torch_kernels.py,
+chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -32,12 +34,19 @@ KS = list(range(1, 13))  # every depth the kernels are instantiated for
 LANES = [48, 37]  # 37: a partial last block (32 Adam lanes, 4 LM / polish lanes a block)
 # depths of the depth-generic programs held to the plain versions: the first
 # (13), the sixteenth-iSwap's busiest (16) and deepest (24), and the last
-# (48: n = 294, 8 Adam / 3 LM / 2 polish lanes a block)
+# (48: n = 294, 8 Adam lanes a block)
 GENERIC_KS = [13, 16, 24, 48]
-# the block shapes also at 64 and the last depth (kMaxK = 79): their lanes
-# against the plain versions take ~70 s here and are held on the card
-# (tests/test_torch_kernels.py, marked cuda; chip_smoke.py at 79)
-SHAPE_KS = [*GENERIC_KS, 64, ck.KERNEL_KS[-1]]
+# the generic LM program's slot buckets (csrc/lm_generic.cuh lm_gen_bucket:
+# 3, 4, 8, 16 slots a thread) start at K = 13 (from 1), 16, 21 and 42: the
+# LM and polish tests also take the first bucket's last depth and the third
+# bucket's first (K = 15, 21)
+LM_GENERIC_KS = sorted([*GENERIC_KS, 15, 21])
+# the block shapes also at the second bucket's last depth (20), the
+# fourth's first (42), at 64 and at the last depth (kMaxK = 79): their
+# lanes against the plain versions take ~70 s here and are held on the
+# card (tests/test_torch_kernels.py, marked cuda; chip_smoke.py at 79)
+SHAPE_KS = sorted([*LM_GENERIC_KS, 20, 42, 64, ck.KERNEL_KS[-1]])
+LM_BUCKETS = {13: 3, 15: 3, 16: 4, 20: 4, 21: 8, 41: 8, 42: 16, 79: 16}
 GENERIC_L = 37
 ADAM_ATOL = 5e-5  # f32 association order only; 25 steps (the JAX kernel test's bound)
 
@@ -72,7 +81,8 @@ def lanes(tmp_path_factory):
         getattr(lib, name).argtypes = [P, P, P, I, I, I, P, P]
     for name in ("adam_host", "lm_host", "polish_host", "adam_host_generic", "lm_host_generic", "polish_host_generic"):
         getattr(lib, name).restype = None
-    lib.generic_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long)]
+    lib.generic_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+                                  ctypes.POINTER(I)]
     lib.generic_shape.restype = None
     return lib
 
@@ -223,43 +233,73 @@ def generic_runs(lanes):
     return get
 
 
+def _shape(lib, kernel, k):
+    """(lanes a block, lane workspace bytes, gate list bytes in the block,
+    register cap on lanes an SM) of a generic program at depth k."""
+    la, lb, gb, cap = ctypes.c_int(), ctypes.c_long(), ctypes.c_long(), ctypes.c_int()
+    lib.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb), ctypes.byref(cap))
+    return la.value, lb.value, gb.value, cap.value
+
+
+SM_BYTES, RESERVED, BLOCK_MAX = 228 * 1024, 1024, 227 * 1024
+
+
+def _lanes_an_sm(n, ws, cap):
+    """Lanes an SM of blocks of n lanes of ws bytes, registers holding cap."""
+    return n * min(SM_BYTES // (n * ws + RESERVED), cap // n)
+
+
 @pytest.mark.parametrize("k", SHAPE_KS)
 def test_generic_shape_fits_a_block(lanes, k):
-    """The lanes a block of each generic program at depth k: gate lists and
-    workspaces within the 227 KB a block may use, at most the instances'
-    lanes a block (32 Adam, 4 LM / polish), Adam in whole warps of 8 teams,
-    and one more unit would not fit."""
-    cap, kb = (32, 4, 4), 227 * 1024
-    for kernel, unit in ((0, 8), (1, 1), (2, 1)):
-        la, lb, gb = ctypes.c_int(), ctypes.c_long(), ctypes.c_long()
-        lanes.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb))
-        n, ws, gates_b = la.value, lb.value, gb.value
-        assert n % unit == 0 and unit <= n <= cap[kernel] and ws % 16 == 0 and gates_b % 16 == 0
-        assert gates_b + n * ws <= kb
-        assert n == cap[kernel] or gates_b + (n + unit) * ws > kb
-    if k == 48:  # n = 294: 8 Adam, 3 LM and 2 polish lanes a block
-        got = []
-        for kernel in range(3):
-            la, lb, gb = ctypes.c_int(), ctypes.c_long(), ctypes.c_long()
-            lanes.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb))
-            got.append(la.value)
-        assert got == [8, 3, 2]
+    """The lanes a block of each generic program at depth k. Adam: gate lists
+    and workspaces within the 227 KB a block may use, at most 32 lanes, in
+    whole warps of 8 teams, and one more warp would not fit. The LM and the
+    polish hold no gate lists (theirs are in device memory) and take the
+    fewest lanes a block that put the most lanes on an SM (228 KB, 1 KB
+    reserved a block) within their slot bucket's register cap: it is the
+    smallest maximiser over every block that fits."""
+    kb = BLOCK_MAX
+    n, ws, gates_b, cap = _shape(lanes, 0, k)
+    assert n % 8 == 0 and 8 <= n <= 32 and ws % 16 == 0 and gates_b % 16 == 0 and cap == 0
+    assert gates_b + n * ws <= kb
+    assert n == 32 or gates_b + (n + 8) * ws > kb
+    for kernel in (1, 2):
+        n, ws, gates_b, cap = _shape(lanes, kernel, k)
+        assert gates_b == 0 and ws % 16 == 0 and 1 <= n <= cap and n * ws <= kb
+        best = max(_lanes_an_sm(m, ws, cap) for m in range(1, cap + 1) if m * ws <= kb)
+        assert _lanes_an_sm(n, ws, cap) == best
+        assert all(_lanes_an_sm(m, ws, cap) < best for m in range(1, n))
+        if k in LM_BUCKETS:  # the bucket's cap: 8 lanes an SM for 3, 4, 8 slots, 4 for 16
+            assert cap == {3: 8, 4: 8, 8: 8, 16: 4}[LM_BUCKETS[k]]
+    if k == 48:  # n = 294: 8 Adam lanes a block; the LM and polish 1 (3 lanes an SM either way)
+        assert [_shape(lanes, kernel, k)[0] for kernel in range(3)] == [8, 1, 1]
+    if k == 13:  # one-lane blocks, 8 an SM: the registers' cap, below the 12 / 10 that shared memory holds
+        assert [_shape(lanes, kernel, k)[0] for kernel in (1, 2)] == [1, 1]
+        assert [_lanes_an_sm(*_shape(lanes, kernel, k)[:2], _shape(lanes, kernel, k)[3]) for kernel in (1, 2)] == [8, 8]
+    if k == 21:  # the polish's 7 lanes (32.2 KB each) fit an SM only as one block
+        assert _shape(lanes, 2, k)[0] == 7
+    if k == 79:  # the polish's two lanes (113.4 KB each) fit an SM only as one block
+        assert _shape(lanes, 2, k)[0] == 2
 
 
 def test_kernel_depths_end_where_a_block_stops_fitting(lanes):
-    """The kernels cover depths 1..kMaxK (79): there one unit of each generic
-    program (a warp of 8 Adam lanes, one LM or polish lane) fits beside its
-    gate lists in 227 KB; at kMaxK + 1 the polish's does not."""
-    kmax, kb = ck.KERNEL_KS[-1], 227 * 1024
+    """The kernels cover depths 1..kMaxK (79), where the polish's one-lane
+    block stopped fitting beside its gate lists. Those lists are in device
+    memory now, so kMaxK stays 79 by choice (csrc/chain_common.cuh): at 79
+    one unit of each generic program fits in 227 KB (a warp of 8 Adam lanes
+    beside its gate lists, one LM or polish lane); Adam's unit would still
+    fit at 80 (227 KB exactly) and not at 81, the LM's and the polish's
+    lanes to their last slot bucket's K = 84."""
+    kmax, kb = ck.KERNEL_KS[-1], BLOCK_MAX
 
-    def block(kernel, k):
-        la, lb, gb = ctypes.c_int(), ctypes.c_long(), ctypes.c_long()
-        lanes.generic_shape(kernel, k, ctypes.byref(la), ctypes.byref(lb), ctypes.byref(gb))
-        return gb.value + la.value * lb.value
+    def unit(kernel, k):  # one warp of Adam lanes or one LM / polish lane, with the block's gate lists
+        _, ws, gates_b, _ = _shape(lanes, kernel, k)
+        return gates_b + (8 if kernel == 0 else 1) * ws
 
     assert ck.KERNEL_KS == tuple(range(1, kmax + 1)) and kmax == 79
-    assert all(block(kernel, kmax) <= kb for kernel in range(3))
-    assert block(2, kmax + 1) > kb
+    assert all(unit(kernel, kmax) <= kb for kernel in range(3))
+    assert unit(0, kmax + 1) == kb and unit(0, kmax + 2) > kb
+    assert unit(1, 84) <= kb and unit(2, 84) <= kb
 
 
 @pytest.mark.parametrize("k", GENERIC_KS)
@@ -279,7 +319,7 @@ def test_generic_adam_lane_matches_plain(lanes, k):
         np.testing.assert_allclose(cost.numpy(), ck.square_cost(x, T32, g32).numpy(), atol=2e-6)
 
 
-@pytest.mark.parametrize("k", GENERIC_KS)
+@pytest.mark.parametrize("k", LM_GENERIC_KS)
 def test_generic_lm_lane_matches_plain(generic_runs, k):
     _, g32, _, T32, xa, _, f = generic_runs(k)
     _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
@@ -288,7 +328,7 @@ def test_generic_lm_lane_matches_plain(generic_runs, k):
     assert np.isclose(f.numpy(), f_ref.numpy(), rtol=1e-3, atol=1e-5).mean() >= 0.99
 
 
-@pytest.mark.parametrize("k", GENERIC_KS)
+@pytest.mark.parametrize("k", LM_GENERIC_KS)
 def test_generic_polish_lane_matches_plain(lanes, generic_runs, k):
     g64, _, T, _, _, xl, _ = generic_runs(k)
     x64 = xl.double().contiguous()

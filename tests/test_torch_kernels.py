@@ -24,9 +24,13 @@ from slam_decomposition_torch.transpile.batch_synth import sqiswap_decompose_bat
 pytestmark = pytest.mark.cuda
 # every depth the kernels are instantiated for, then depths of the
 # depth-generic programs (13..79: the first, the sixteenth-iSwap's busiest
-# and deepest, 48, 64 and the last)
-KS = [*range(1, 13), 13, 16, 24, 48, 64, 79]
-LANES = [512, 509]  # 509: a partial last block (32 / 24 / 16 / 8 Adam lanes, 4 / 3 / 2 LM and polish lanes a block)
+# and deepest, 48, 64 and the last; 15, 20 and 21 end and start the LM
+# program's slot buckets, csrc/lm_generic.cuh lm_gen_bucket)
+KS = [*range(1, 13), 13, 15, 16, 20, 21, 24, 48, 64, 79]
+# 509: a partial last block (32 / 24 / 16 / 8 Adam lanes; 4 LM and polish
+# lanes a block to K = 12, then the generic polish's 7 / 2 at K = 20, 21 /
+# 24, 79)
+LANES = [512, 509]
 
 
 @pytest.fixture
