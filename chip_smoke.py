@@ -9,14 +9,15 @@ Phases, one line each (more for the build report):
      resident blocks and warps per SM (CUDA occupancy calculator) of each
      kernel instance (Adam with and without the cost, the LM and the polish
      at k = 1..12: 48 instances; and the depth-generic programs, in which k
-     is a runtime argument: Adam's two, the LM's and the polish's one a slot
+     is a runtime argument: Adam's two a layer bucket (ADAM_GEN_BUCKETS,
+     with and without the cost), the LM's and the polish's one a slot
      bucket (LM_GEN_BUCKETS) and their gate-list kernels; at k = 12 and at
      depth_deep()'s deep depths to 79, with their lanes a block) with its
      shared memory a block, static or dynamic; every instance must build
      without spills and with no stack frame beyond the math library's sincos
      scratch, and keep 12 warps per SM resident, or every block its shared
      memory leaves room for where that is fewer (at least one; the generic
-     LM and polish: every block of their register cap, 8 or 4 lanes an SM);
+     programs: every block of their bucket's register cap of lanes an SM);
   3. kernel parity: each kernel against its plain PyTorch version on the
      same inputs at the main path's shapes (40000 f32 lanes = 10000
      targets x 4 restarts for Adam and LM, 10000 f64 lanes for the
@@ -247,6 +248,15 @@ SOURCES = {
 GENERIC_SOURCES = {name: f"slam_decomposition_torch/csrc/{name}_generic.cu" for name in REPLACES}
 # the generic LM's and polish's slot buckets (csrc/lm_generic.cuh lm_gen_bucket): one kernel each
 LM_GEN_BUCKETS = (3, 4, 8, 16)
+# the generic Adam's layer buckets (csrc/adam_generic.cuh adam_gen_bucket), each
+# with its register cap of lanes an SM (adam_gen_lanes_cap): two kernels each
+ADAM_GEN_BUCKETS = {1: 40, 2: 32, 3: 32, 4: 24, 5: 24}
+
+
+def adam_gen_lanes_cap(k):
+    """The lanes an SM that the generic Adam's register budget holds at
+    depth k: its layer bucket's cap (layers t, t + 16, ... a thread)."""
+    return ADAM_GEN_BUCKETS[(k + 16) // 16]
 
 
 def lm_gen_lanes_cap(k):
@@ -504,9 +514,10 @@ def phase_build():
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0 and r.get("stack_frame", 1 << 30) <= STACK_MAX,
               f"{name} spills or keeps arrays in local memory")
     # Adam with and without the cost, the LM and the polish, each at every k
-    # of an instance; Adam's two depth-generic programs; the generic LM and
-    # polish once a slot bucket, and their two gate-list kernels
-    want = 4 * len(INSTANCE_KS) + 2 + 2 * len(LM_GEN_BUCKETS) + 2
+    # of an instance; the generic Adam with and without the cost, the
+    # generic LM and polish, once a slot bucket, and the LM's and polish's
+    # two gate-list kernels
+    want = 4 * len(INSTANCE_KS) + 2 * len(ADAM_GEN_BUCKETS) + 2 * len(LM_GEN_BUCKETS) + 2
     check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
     _build.load()
     generic_ks = (12, *(k for k, path in depth_deep() if path == "kernels" and k > max(INSTANCE_KS)))
@@ -521,11 +532,12 @@ def phase_build():
                 # room for fewer (Adam from K = 9, the polish from K = 10, the
                 # generic programs' blocks of up to 227 KB), every block that
                 # room holds: the registers must not cost a resident block.
-                # The generic LM and polish: every block of their register
-                # cap's lanes an SM that shared memory has room for
+                # The generic programs: every block of their bucket's register
+                # cap of lanes an SM that shared memory has room for
                 need = min(max(12 // (o["threads"] // 32), 1), o["room"])
-                if generic and name != "adam_chain":
-                    need = min(lm_gen_lanes_cap(k) // o["lanes"], o["room"])
+                if generic:
+                    cap = adam_gen_lanes_cap(k) if name == "adam_chain" else lm_gen_lanes_cap(k)
+                    need = min(cap // o["lanes"], o["room"])
                 check(o["blocks"] >= need, f"{name}<{k}> keeps {o['blocks']} blocks per SM resident, needs {need}")
     return regs
 

@@ -316,13 +316,15 @@ template <int S, class Th> struct HostTeam {
 // depth-generic programs, in which K is a runtime argument. kMaxK = 79 was
 // the deepest chain at which the polish's one-lane block fit in 227 KB of
 // shared memory beside its f32 and f64 gate lists. Those lists are now in
-// device memory (lm_generic.cuh), so shared memory no longer stops the
-// depths there: the LM's and the polish's one-lane blocks would fit to
-// their last slot bucket's K = 84 (the polish's lane: 120.7 KB) and Adam's
-// unit, a warp of 8 lanes beside its gate lists, to K = 80 (227 KB
-// exactly; generic_lanes, host_lanes.cpp generic_shape,
-// tests/test_torch_kernel_lanes.py). kMaxK stays 79 all the same, for
-// every kernel alike: deeper chains are later work.
+// device memory (lm_generic.cuh), and Adam reads its gates from there
+// (adam_generic.cuh), so shared memory no longer stops the depths there:
+// the LM's and the polish's one-lane blocks would fit to their last slot
+// bucket's K = 84 (the polish's lane: 120.7 KB), and Adam's unit, a warp
+// of 2 lanes of 192 B a layer and 256-383 B besides, to K = 602 (226.6 KB;
+// host_lanes.cpp generic_shape, tests/test_torch_kernel_lanes.py), though
+// past K = 79 its registers would need more layer buckets than its 5.
+// kMaxK stays 79 all the same, for every kernel alike: deeper chains are
+// later work.
 constexpr int kInstMaxK = 12;
 constexpr int kMaxK = 79;
 
@@ -378,13 +380,9 @@ template <int K = 1, class F> cudaError_t by_k(int k, F&& f) {
 #endif
 
 // ------------------------------------------------------------ generic blocks
-// A depth-generic block holds its gate lists and `lanes` lane workspaces in
-// dynamic shared memory, sized from K at launch. Lanes a block: as many
-// workspaces of lane_bytes as fit beside the gate lists in the 227 KB a
-// block may use, at most max_lanes (the instances' lanes a block), in whole
-// units of `unit` lanes (a warp's teams: a team's sums shuffle over the
-// full warp), and at least one unit (which fits for K <= kMaxK; the
-// launchers refuse a block over kBlockSmemMax).
+// A depth-generic block holds lane workspaces in dynamic shared memory,
+// sized from K at launch (adam_gen_lanes, lm_gen_lanes), at most
+// kBlockSmemMax (the launchers refuse a larger block).
 constexpr size_t kBlockSmemMax = 227 * 1024;
 
 SLAM_HD size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
@@ -400,12 +398,5 @@ struct Carve {
     return q;
   }
 };
-
-SLAM_HD int generic_lanes(size_t lane_bytes, size_t gate_bytes, int max_lanes, int unit) {
-  const size_t fit = gate_bytes < kBlockSmemMax ? (kBlockSmemMax - gate_bytes) / lane_bytes : 0;
-  int lanes = fit < (size_t)max_lanes ? (int)fit : max_lanes;
-  lanes -= lanes % unit;
-  return lanes < unit ? unit : lanes;
-}
 
 }  // namespace slam

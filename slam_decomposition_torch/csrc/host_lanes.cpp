@@ -48,21 +48,19 @@ template <int K> static void adam_any(const float* x0, const float* tgt, const f
                case 5: call(5); break; case 6: call(6); break; case 7: call(7); break; case 8: call(8); break; \
                case 9: call(9); break; case 10: call(10); break; case 11: call(11); break; case 12: call(12); break; }
 // The depth-generic programs, on a 16-byte aligned buffer of one lane's
-// workspace, over as many lanes a block as the kernels take
-// (adam_chain_generic.cu: chain_common.cuh generic_lanes; the LM and the
-// polish: lm_generic.cuh lm_gen_block_lanes, in depth k's slot bucket).
-static int adam_gen_lanes(int k) {
-  return generic_lanes(AdamGenWs::lane_bytes(k), adam_gen_gate_bytes(k), kAdamLanes, 32 / kAdamTeam);
-}
+// workspace, over as many lanes a block as the kernels take (Adam:
+// adam_generic.cuh adam_gen_block_lanes; the LM and the polish:
+// lm_generic.cuh lm_gen_block_lanes), in depth k's slot bucket.
 template <bool Cost> static void adam_gen(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int k, int L, float* xout, float* fout) {
-  std::vector<GateNz<float>> G(k);
-  for (int idx = 0; idx < 8 * k; ++idx) gate_nz_entry<float>(gates, G.data(), idx);
   std::vector<F4> buf(AdamGenWs::lane_bytes(k) / sizeof(F4));
   const AdamGenWs ws(reinterpret_cast<unsigned char*>(buf.data()), k);
-  HostTeam<kAdamTeam, AdamGenThread> tm;
-  const int lanes = adam_gen_lanes(k);
-  for (int lane = 0; lane < (L + lanes - 1) / lanes * lanes; ++lane)
-    adam_gen_team_io<Cost>(tm, ws, G.data(), x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  const int lanes = adam_gen_block_lanes(k);
+  adam_gen_by_bucket(k, [&](auto sb) {
+    constexpr int SB = decltype(sb)::value;
+    HostTeam<kAdamGenTeam, AdamGenThread<SB>> tm;
+    for (int lane = 0; lane < (L + lanes - 1) / lanes * lanes; ++lane)
+      adam_gen_team_io<SB, Cost>(tm, ws, gates, x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  });
 }
 template <typename R> static void lm_gen(const R* x0, const R* tgt, const R* gates, int iters, int k, int L, R* xout, R* fout) {
   std::vector<GateNz<float>> G(k);
@@ -110,12 +108,12 @@ void polish_host_generic(const double* x0, const double* tgt, const double* gate
   lm_gen<double>(x0, tgt, gates, iters, k, L, xout, fout);
 }
 // the generic blocks at depth k: kernel 0 Adam, 1 LM, 2 polish -> lanes a
-// block, bytes of one lane's workspace, bytes of the gate lists in the
-// block (0 for the LM and the polish: theirs are in device memory), and
-// the most lanes an SM the registers hold (the LM's and the polish's slot
-// bucket's cap; 0 for Adam, whose blocks shared memory limits)
+// block, bytes of one lane's workspace, bytes of gate lists in the block
+// (0 for all three: Adam reads the gates and the LM and the polish their
+// lists from device memory), and the most lanes an SM the registers hold
+// (the slot bucket's cap)
 void generic_shape(int kernel, int k, int* lanes, long* lane_bytes, long* gate_bytes, int* cap) {
-  if (kernel == 0) { *lanes = adam_gen_lanes(k); *lane_bytes = (long)AdamGenWs::lane_bytes(k); *gate_bytes = (long)adam_gen_gate_bytes(k); *cap = 0; }
+  if (kernel == 0) { *lanes = adam_gen_block_lanes(k); *lane_bytes = (long)AdamGenWs::lane_bytes(k); *gate_bytes = 0; *cap = adam_gen_lanes_cap(adam_gen_bucket(k)); }
   else if (kernel == 1) { *lanes = lm_gen_block_lanes<float>(k); *lane_bytes = (long)LmGenWs<float>::lane_bytes(k); *gate_bytes = 0; *cap = lm_gen_lanes_cap(lm_gen_bucket(k)); }
   else { *lanes = lm_gen_block_lanes<double>(k); *lane_bytes = (long)LmGenWs<double>::lane_bytes(k); *gate_bytes = 0; *cap = lm_gen_lanes_cap(lm_gen_bucket(k)); }
 }

@@ -6,6 +6,7 @@ or degeneracy guarantee; ``torch.linalg.eigh``'s gradient is NaN at the
 repeated eigenvalues that density matrices of pure states have. The
 fixed-sweep rotations below are branch-free and deterministic.
 
+* ``jacobi_eigh``: one real symmetric matrix.
 * ``joint_diag``: two commuting real symmetric matrices
   (Cardoso-Souloumiac; resolves degeneracies of either matrix alone). It
   rotates in place on copies of its inputs, or out of place (each rotation
@@ -123,6 +124,25 @@ def _fold_angle(theta):
     pi/2 also zeroes the pivot but swaps the diagonal entries; bounded
     angles keep Jacobi's quadratic convergence)."""
     return theta - _HALF_PI * torch.round(theta / _HALF_PI)
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int = 10):
+    """Real symmetric eigendecomposition of (..., n, n) -> (w, V) with
+    A = V diag(w) V^T, w ascending (JAX ops/eig.jacobi_eigh): fixed sweeps
+    of Givens rotations, each zeroing its pivot (tan 2 theta = 2 a_pq /
+    (a_pp - a_qq), theta folded into [-pi/4, pi/4]), on copies of A."""
+    n = A.shape[-1]
+    A = A.clone()
+    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    for _ in range(sweeps):
+        for p, q in _pairs(n):
+            theta = _fold_angle(0.5 * torch.atan2(2.0 * A[..., p, q], A[..., p, p] - A[..., q, q]))
+            c, s = torch.cos(theta), torch.sin(theta)
+            _givens_apply_(A, p, q, c, s)
+            _rot_apply_right_(V, p, q, c, s)
+    w = torch.diagonal(A, dim1=-2, dim2=-1)
+    order = torch.argsort(w, dim=-1, stable=True)
+    return torch.gather(w, -1, order), torch.gather(V, -1, order[..., None, :].expand(V.shape))
 
 
 def _hermitian_rotation(n, p, q, h, dd):

@@ -67,6 +67,12 @@ def to_magic(U: torch.Tensor) -> torch.Tensor:
     return B.conj().transpose(-2, -1) @ (U @ B)
 
 
+def from_magic(M: torch.Tensor) -> torch.Tensor:
+    """B M B^dag: the inverse of to_magic."""
+    B = torch.as_tensor(MAGIC, dtype=M.dtype, device=M.device)
+    return B @ (M @ B.conj().transpose(-2, -1))
+
+
 def gamma_eigenphases(U: torch.Tensor) -> torch.Tensor:
     """Eigenphases (4, unsorted, in (-pi, pi]) of m = M^T M for U in U(4)."""
     Us, _ = su4_normalize(U)

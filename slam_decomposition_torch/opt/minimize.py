@@ -174,3 +174,15 @@ def lbfgs(
         it = it + live.to(it.dtype)
 
     return LBFGSResult(x=x, f=f, n_iters=it, converged=f <= f_tol, n_evals=count["evals"], n_syncs=count["syncs"])
+
+
+def multistart_lbfgs(fun: Callable[[torch.Tensor], torch.Tensor], x0s: torch.Tensor, **kw) -> LBFGSResult:
+    """lbfgs from a batch of starts x0s (..., n) (JAX
+    opt/minimize.multistart_lbfgs, which vmaps lbfgs over the leading axes):
+    the starts run as the lanes of one lbfgs call, ``fun`` maps (L, n) to
+    (L,) as there, and x, f, n_iters and converged come back shaped
+    (..., n) and (...)."""
+    lead = x0s.shape[:-1]
+    r = lbfgs(fun, x0s.reshape(-1, x0s.shape[-1]), **kw)
+    return r._replace(x=r.x.reshape(x0s.shape), f=r.f.reshape(lead), n_iters=r.n_iters.reshape(lead),
+                      converged=r.converged.reshape(lead))

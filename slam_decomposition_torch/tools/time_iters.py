@@ -16,7 +16,11 @@ wherever the step before was accepted), then the bound of the full count
 (utils/mfu.py, J rebuilt as often as this run's accepted steps ask) and
 the share of it the launch reaches. With --adam-ks, adam_chain's
 milliseconds for the 100-step schedule at each of those depths on
---adam-targets targets x 4 restarts, and per lane; with --sass, each kernel
+--adam-targets targets x 4 restarts, per lane, and against its bound
+(utils/mfu.py adam_launch); at a depth with an instance (k <= 12) also
+the depth-generic program's time on the same lanes. The generic program
+has no switch to leave a phase out: its split comes from timing copies of
+the tree with a phase cut (PERF.md section 6). With --sass, each kernel
 instance's SASS instruction count (cuobjdump). Prints the card's name and
 power limit first, then the build's seconds (0.0 when the library was
 built before) and the depth-generic programs' registers. A variant tree
@@ -26,6 +30,7 @@ is timed by running this module from that tree in the same command.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import statistics
 import subprocess
 import sys
@@ -51,6 +56,17 @@ def median_ms(fn, reps: int) -> float:
 
 def bound_text(bound: dict, ms: float) -> str:
     return f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), the full count {bound['bound_ms'] / ms:.1%} of it"
+
+
+def adam_generic(x0, t32, g32, sched):
+    """adam_chain's depth-generic program (its C entry, which the wrapper
+    takes from k = 13) at any depth."""
+    from slam_decomposition_torch.ops import chain_kernels as ck
+
+    out = torch.empty_like(x0)
+    ck._launch("slam_adam_chain_generic", ck._p(x0), ck._p(t32), ck._p(g32), ck._p(sched),
+               ctypes.c_int(sched.shape[0]), ctypes.c_int(g32.shape[0]), ctypes.c_int(len(x0)), ck._p(out), None)
+    return out
 
 
 def main(argv) -> int:
@@ -88,7 +104,14 @@ def main(argv) -> int:
     for k in args.adam_ks:
         g64, g32, T, t32, x0, sched = kernel_inputs(k, args.adam_targets, RESTARTS, dev).values()
         ms = median_ms(lambda: ck.adam_chain(x0, t32, g32, sched), args.reps)
-        print(f"adam_chain k={k} L={len(x0)} {sched.shape[0]} steps: {ms:.3f} ms, {1e6 * ms / len(x0):.3f} ns a lane")
+        print(f"adam_chain k={k} L={len(x0)} {sched.shape[0]} steps: {ms:.3f} ms, {1e6 * ms / len(x0):.3f} ns a lane; "
+              + bound_text(mfu.adam_launch(k, len(x0), sched.shape[0]), ms))
+        o = _build.occupancy("adam_chain", k, generic=True)
+        print(f"adam_chain k={k} depth-generic program: {o['lanes']} lanes a block, {o['smem']} B of shared memory a "
+              f"block, {o['blocks']} resident blocks = {o['warps']} warps an SM (room for {o['room']} by shared memory)")
+        if k <= max(ck.INSTANCE_KS):  # the depth-generic program's C entry at the same depth
+            ms_g = median_ms(lambda: adam_generic(x0, t32, g32, sched), args.reps)
+            print(f"adam_chain k={k} L={len(x0)} depth-generic program: {ms_g:.3f} ms, {ms_g / ms:.2f}x the instance")
     for k in args.ks:
         for j, lanes in enumerate([*args.targets, *args.lanes]):
             g64, g32, T, t32, x0, sched = kernel_inputs(k, lanes, args.restarts, dev).values()

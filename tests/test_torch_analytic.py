@@ -28,6 +28,7 @@ from slam_decomposition_torch.ops import weyl as tweyl
 from slam_decomposition_torch.ops.kak_batch import make_analytic_init
 from slam_decomposition_torch.opt.gauss_newton import make_analytic_solver
 from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 # the degenerate classes of tests/test_kak_batch.py:63-91
 ZOO2 = np.stack(

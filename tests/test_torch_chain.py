@@ -20,6 +20,7 @@ from slam_decomposition_tpu.opt.samplers import haar_sample
 
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import certificate
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 L = 16
 # The LM and polish are held against JAX at depths 2, 3 and 5; JAX compiles
@@ -163,8 +164,28 @@ def test_plain_polish_matches_jax_f64_polish(k):
     assert xt.abs().max() <= 2 * np.pi + 1e-12
 
 
+@pytest.fixture(scope="module")
+def sixteenth():
+    """The depth-13 sixteenth-iSwap set-up of the test below, with the
+    port's plain Adam (100 steps) and f32 LM (8 iterations) from it, each
+    computed once for the three phases."""
+    gate = jgates.conversion_gain_gate(0, 0, 0, np.pi / 32, 1.0)
+    ja, js, T, x0, g64 = _setup(13, 21, gate)
+    T32, g32 = torch.as_tensor(T).to(torch.complex64), g64.to(torch.complex64)
+    x32 = torch.as_tensor(x0, dtype=torch.float32)
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            runs[name] = (ck.adam_chain(x32, T32, g32, ck.adam_schedule(100)) if name == "adam"
+                          else ck.lm_chain(run("adam"), T32, g32, 8))
+        return runs[name]
+
+    return js, T, x0, g64, T32, g32, x32, run
+
+
 @pytest.mark.parametrize("phase", ["adam", "lm", "polish"])
-def test_plain_phases_match_jax_on_the_sixteenth_iswap_chain(phase):
+def test_plain_phases_match_jax_on_the_sixteenth_iswap_chain(sixteenth, phase):
     """Depth 13 (n = 84, the first depth of the depth-generic kernels) on
     the sixteenth-iSwap chain, conversion_gain_gate(0, 0, 0, pi/32, 1): the
     plain Adam segment, f32 LM and f64 polish against the JAX solver's
@@ -174,10 +195,7 @@ def test_plain_phases_match_jax_on_the_sixteenth_iswap_chain(phase):
     f64, and so from the port's, which stays within 5e-5 of them: on every
     lane the port agrees with JAX within 5e-5 or, where it does not, is the
     one that agrees with the f64 steps."""
-    gate = jgates.conversion_gain_gate(0, 0, 0, np.pi / 32, 1.0)
-    ja, js, T, x0, g64 = _setup(13, 21, gate)
-    T32, g32 = torch.as_tensor(T).to(torch.complex64), g64.to(torch.complex64)
-    x32 = torch.as_tensor(x0, dtype=torch.float32)
+    js, T, x0, g64, T32, g32, x32, run = sixteenth
     if phase == "adam":
         t32 = jcplx.from_numpy(T, dtype=jnp.float32)
         z = jnp.zeros_like(jnp.asarray(x0.astype(np.float32)))
@@ -190,16 +208,16 @@ def test_plain_phases_match_jax_on_the_sixteenth_iswap_chain(phase):
         assert ((d <= 5e-5) | ((d_port <= 5e-5) & (d_jax > 5e-5))).all(), (d, d_port, d_jax)
         assert (d <= 5e-5).double().mean() >= 0.75, d  # most lanes within the sqiSwap tests' bound directly
         return
-    xa = ck.adam_chain(x32, T32, g32, ck.adam_schedule(100))
+    xa = run("adam")
     if phase == "lm":
         want = np.asarray(jax.jit(lambda x, t: js.polish(x, t, iters=8))(
             jnp.asarray(xa.numpy()), jcplx.from_numpy(T, dtype=jnp.float32)))
-        got, f = ck.lm_chain(xa, T32, g32, 8)
+        got, f = run("lm")
         fj, ft = _sumsq(want, T, g64), _sumsq(got.numpy(), T, g64)
         assert np.isclose(ft, fj, rtol=1e-3, atol=1e-5).mean() >= 0.99
         np.testing.assert_allclose(f.numpy(), ft, rtol=1e-3, atol=1e-5)
         return
-    x64 = ck.lm_chain(xa, T32, g32, 8)[0].double()
+    x64 = run("lm")[0].double()
     tj = jcplx.from_numpy(T)
     cj = np.asarray(js.certify(jax.jit(js.polish)(jnp.asarray(x64.numpy()), tj), tj))
     xt, f = ck.polish_chain(x64, torch.as_tensor(T), g64, 6)

@@ -21,6 +21,7 @@ from slam_decomposition_tpu.opt.samplers import haar_sample
 from slam_decomposition_torch.ops import eig as teig
 from slam_decomposition_torch.ops import weyl as tweyl
 from slam_decomposition_torch.opt import costs as tcosts
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 ATOL = 1e-10
 B = 6

@@ -11,6 +11,7 @@ from slam_decomposition_tpu.opt import costs as jcosts
 from slam_decomposition_tpu.opt.samplers import haar_sample
 
 from slam_decomposition_torch.opt import costs as tcosts
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 
 def _pair(a):

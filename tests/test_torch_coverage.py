@@ -38,6 +38,7 @@ from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
 from slam_decomposition_torch.opt.samplers import haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = torch.device("cpu")
 PD = (math.pi / 8, math.pi / 4)  # the parallel-drive gate's (gc, gg): both drives on, no cached set
@@ -60,17 +61,6 @@ def _coverage_rows(c):
     return [
         (e.operations, e.cost, [_rows(s) for s in e.polytope.convex_subpolytopes]) for e in c
     ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module, restored after it: the batched
-    coordinates run many small ops, where extra threads only add
-    synchronisation (20000 targets: 0.66 s on one thread, 1.7 s on eight)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from slam_decomposition_torch.tools import certify_frontier
 from slam_decomposition_torch.transpile import passes
 from slam_decomposition_torch.transpile.passes import pass_manager_basic
 from slam_decomposition_torch.utils.playground import ParallelDriveExplorer
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 U = haar_sample(4, seed=3)
 ANSATZ = build_ansatz(cycle_gates([gates.SQISWAP], 2))

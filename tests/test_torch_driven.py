@@ -20,6 +20,7 @@ from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models import hamiltonians as ham
 from slam_decomposition_torch.ops import expm
 from slam_decomposition_torch.ops import weyl
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 TOL = 1e-12
 

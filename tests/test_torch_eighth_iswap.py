@@ -28,6 +28,7 @@ from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.opt import costs
 from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
 from slam_decomposition_torch.opt.samplers import haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 THRESH = 1e-10
 ANGLE = np.pi / 16  # g2 of the eighth-iSwap: an eighth of iSwap's pi/2
@@ -38,17 +39,6 @@ N_TARGETS, SEED = 300, 456
 # five restarts there in a batch of eight, and would make JAX compile its
 # optimizer at deeper depths as well
 DEPTH7 = [1, 4, 6, 13, 20, 23, 29, 31]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module, restored after it: the plain
-    versions here run many small ops, where extra threads only add
-    synchronisation (and contend with the other test processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _q():

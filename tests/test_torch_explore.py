@@ -34,6 +34,7 @@ from slam_decomposition_torch.explore import speed_limit as sl
 from slam_decomposition_torch.explore import winners
 from slam_decomposition_torch.models import gates as G
 from slam_decomposition_torch.utils import persist
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 ATOL = 1e-12

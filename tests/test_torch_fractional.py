@@ -28,6 +28,7 @@ from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.opt import costs
 from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
 from slam_decomposition_torch.opt.samplers import haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 THRESH = 1e-10
 ANGLE = np.pi / 8  # g2 of the quarter-iSwap: a quarter of iSwap's pi/2

@@ -32,19 +32,11 @@ from slam_decomposition_torch.config import JAX_DATA_DIR
 from slam_decomposition_torch.explore.smush_volume import _smush_eval
 from slam_decomposition_torch.opt.costs import makhlin_functional_cost
 from slam_decomposition_torch.tools import certify_frontier as cf
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 LOSS_ATOL = 1e-10  # certified losses of the two packages (both ~1e-30)
 RECOMPUTE_ATOL = 1e-12  # a returned loss against the f64 Makhlin functional of its x
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

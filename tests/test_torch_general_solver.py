@@ -32,6 +32,7 @@ from slam_decomposition_torch.opt.gauss_newton import (
     makhlin_residual,
     takes_kernels,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 THRESH = 1e-10
 BOUNDS = (np.zeros(2), np.full(2, np.pi / 2))

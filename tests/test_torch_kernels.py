@@ -27,9 +27,12 @@ pytestmark = pytest.mark.cuda
 # and deepest, 48, 64 and the last; 15, 20 and 21 end and start the LM
 # program's slot buckets, csrc/lm_generic.cuh lm_gen_bucket)
 KS = [*range(1, 13), 13, 15, 16, 20, 21, 24, 48, 64, 79]
-# 509: a partial last block (32 / 24 / 16 / 8 Adam lanes; 4 LM and polish
-# lanes a block to K = 12, then the generic polish's 7 / 2 at K = 20, 21 /
-# 24, 79)
+# Adam's also at the edges of the generic Adam's layer buckets
+# (csrc/adam_generic.cuh adam_gen_bucket: K <= 15, 31, 47, 63, 79)
+ADAM_KS = sorted({*KS, 31, 32, 47, 63})
+# 509: a partial last block (32 Adam lanes a block to K = 12, then the
+# generic Adam's 2 to 24; 4 LM and polish lanes a block to K = 12, then the
+# generic polish's 7 / 2 at K = 20, 21 / 24, 79)
 LANES = [512, 509]
 
 
@@ -54,7 +57,7 @@ def _inputs(k, dev, seed=0, L=512):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", ADAM_KS)
 def test_adam_kernel_matches_plain(dev, k, L):
     _, g32, _, T32, x0 = _inputs(k, dev, L=L)
     # f32 association order only: 25 steps and 5e-5 (the JAX kernel test's
@@ -76,7 +79,7 @@ def test_adam_kernel_matches_plain(dev, k, L):
 
 
 @pytest.mark.parametrize("L", LANES)
-@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("k", ADAM_KS)
 def test_adam_kernel_with_cost(dev, k, L):
     """The instance that ends with one more chain evaluation: the same x as
     the default instance, and the f32 square cost of that x (atol 1e-5:

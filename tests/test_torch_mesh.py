@@ -28,18 +28,10 @@ from slam_decomposition_torch.opt.gauss_newton import ChainSolver
 from slam_decomposition_torch.parallel.launch import run_ranks
 from slam_decomposition_torch.parallel.mesh import make_mesh, pad_to_multiple
 from slam_decomposition_torch.tools.mesh_readings import rank_readings
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 N, RP = 8, 2  # dp = 4
 N_PARAMS = 18  # the k = 2 chain
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _x0(B, R, seed):

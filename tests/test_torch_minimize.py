@@ -18,13 +18,15 @@ from slam_decomposition_tpu.models import templates as jt
 from slam_decomposition_tpu.ops import cplx as jcplx
 from slam_decomposition_tpu.opt import costs as jcosts
 from slam_decomposition_tpu.opt.minimize import lbfgs as jlbfgs
+from slam_decomposition_tpu.opt.minimize import multistart_lbfgs as jmultistart
 from slam_decomposition_tpu.opt.samplers import haar_sample
 
 from slam_decomposition_torch.models import gates as tgates
 from slam_decomposition_torch.models import hamiltonians as tham
 from slam_decomposition_torch.models import templates as tt
 from slam_decomposition_torch.opt import costs as tcosts
-from slam_decomposition_torch.opt.minimize import lbfgs
+from slam_decomposition_torch.opt.minimize import lbfgs, multistart_lbfgs
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 L = 24
 KW = dict(f_tol=5e-11, g_tol=1e-14)
@@ -120,3 +122,25 @@ def test_iteration_limit_and_result_fields():
     assert r.x.shape == (4, 3) and r.f.shape == (4,) and r.n_iters.dtype == torch.int32
     assert (r.f < ((x0 - 1.0) ** 4).sum(-1)).all()
     assert r.n_evals >= 2 * 3 and r.n_syncs >= 3
+
+
+def test_multistart_lbfgs_matches_jax():
+    """A 2 x 3 batch of starts on one target (the CNOT chain of depth 3,
+    square cost): the JAX function vmaps lbfgs over the two leading axes,
+    the port runs the six starts as lanes; the same iterations, verdicts
+    and f, and x as lane by lane above, all in the batch's shape."""
+    ja = jt.build_ansatz(jt.cycle_gates([jgates.CNOT], 3))
+    ta = tt.build_ansatz(tt.cycle_gates([tgates.CNOT], 3))
+    T = haar_sample(1, seed=4)[0]
+    x0s = np.random.default_rng(6).uniform(0, 2 * np.pi, (2, 3, ja.n_params))
+    t0, t1 = jcplx.from_numpy(T)
+    jr = jax.jit(lambda x: jmultistart(lambda y: jcosts.square_cost(ja.eval_fn(y), (t0, t1)), x, max_iters=250, **KW))(
+        jnp.asarray(x0s))
+    Tt = torch.as_tensor(T)
+    tr = multistart_lbfgs(lambda x: tcosts.square_cost(ta.eval_fn(x), Tt.expand(x.shape[0], 4, 4)),
+                          torch.as_tensor(x0s), max_iters=250, **KW)
+    assert tr.x.shape == x0s.shape and tr.f.shape == tr.n_iters.shape == tr.converged.shape == (2, 3)
+    flat = lambda r: r._replace(x=r.x.reshape(6, -1), f=r.f.reshape(6), n_iters=r.n_iters.reshape(6),
+                                converged=r.converged.reshape(6))
+    _compare(flat(jr), flat(tr), flat_lanes=1)
+    assert tr.converged.all()

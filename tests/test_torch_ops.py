@@ -13,6 +13,7 @@ from slam_decomposition_tpu.coverage import coverage as jcov
 from slam_decomposition_tpu.models import gates as jgates
 from slam_decomposition_tpu.models import templates as jtemplates
 from slam_decomposition_tpu.ops import cplx as jcplx
+from slam_decomposition_tpu.ops import eig as jeig
 from slam_decomposition_tpu.ops import su2 as jsu2
 from slam_decomposition_tpu.ops import weyl as jweyl
 from slam_decomposition_tpu.opt import samplers as jsamplers
@@ -21,9 +22,11 @@ from slam_decomposition_torch.convert import chain_gates_from_numpy, coverage_fr
 from slam_decomposition_torch.coverage import coverage as tcov
 from slam_decomposition_torch.models import gates as tgates
 from slam_decomposition_torch.models import templates as ttemplates
+from slam_decomposition_torch.ops import eig as teig
 from slam_decomposition_torch.ops import su2 as tsu2
 from slam_decomposition_torch.ops import weyl as tweyl
 from slam_decomposition_torch.opt import samplers as tsamplers
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 # f64 on both sides: agreement is rounding-level; 1e-12 leaves ~1000 ulp of
 # room for the different operation order of two eager / XLA pipelines
@@ -131,3 +134,28 @@ def test_ks_of_degenerate_classes(coverages):
     got = tcov.monodromy_ks_batch(tc, zoo, device="cpu")
     assert np.array_equal(got, jcov.monodromy_ks_batch(jc, zoo))
     assert got[0] == 0 and got[1] == 1 and got[3] == 3
+
+
+def test_jacobi_eigh_matches_jax():
+    """Real symmetric 4x4 and 6x6 batches: the same rotations in both
+    packages, so w and V agree to rounding; w ascending, A = V diag(w) V^T."""
+    rng = np.random.default_rng(11)
+    for n in (4, 6):
+        M = rng.normal(size=(8, n, n))
+        A = M + np.swapaxes(M, -1, -2)
+        jw, jV = jax.jit(jeig.jacobi_eigh)(jnp.asarray(A))
+        w, V = teig.jacobi_eigh(torch.as_tensor(A))
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=ATOL)
+        np.testing.assert_allclose(V.numpy(), np.asarray(jV), atol=1e-10)
+        assert (torch.diff(w, dim=-1) >= 0).all()
+        np.testing.assert_allclose((V * w[..., None, :]) @ V.transpose(-2, -1), A, atol=1e-10)
+
+
+def test_from_magic_matches_jax():
+    """B M B^dag on native complex against the JAX (re, im) pairs, and the
+    inverse of to_magic."""
+    U = jsamplers.haar_sample(16, seed=12)
+    want = jcplx.to_numpy(jax.jit(jweyl.from_magic)(jcplx.from_numpy(U)))
+    got = tweyl.from_magic(torch.as_tensor(U))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(tweyl.from_magic(tweyl.to_magic(torch.as_tensor(U))).numpy(), U, atol=ATOL)

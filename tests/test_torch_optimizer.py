@@ -24,6 +24,7 @@ from slam_decomposition_torch.opt import costs
 from slam_decomposition_torch.opt.optimizer import SynthesisResult, TemplateOptimizer
 from slam_decomposition_torch.opt.preseed import PreseedStore
 from slam_decomposition_torch.opt.samplers import haar_exact_sample, haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 THRESH = 1e-10
 BOUNDS = (np.zeros(2), np.full(2, np.pi / 2))

@@ -34,20 +34,12 @@ from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt.gauss_newton import makhlin_residual
 from slam_decomposition_torch.opt.samplers import haar_sample
 from slam_decomposition_torch.transpile import ir, library, passes
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 PULSE_ATOL = 1e-12  # per-lane pulses against jax.vmap: the same expm up to rounding
 CIRCUIT_ATOL = 1e-12  # the exact path's KAK-sandwich locals and pulses
 THRESHOLD = 1e-9  # fit_substituted_pd's default
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _gdist(A, B):

@@ -11,6 +11,7 @@ from slam_decomposition_tpu.transpile import route as jroute
 
 from slam_decomposition_torch.transpile import library
 from slam_decomposition_torch.transpile import route
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 GENS = {
     "qv": lambda lib, s: lib.qv(9, seed=s),

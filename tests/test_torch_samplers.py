@@ -13,6 +13,7 @@ from slam_decomposition_torch.models import gates as G
 from slam_decomposition_torch.opt import samplers as ts
 from slam_decomposition_torch.transpile import library
 from slam_decomposition_torch.transpile.kak import sqiswap_decompose
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 
 def test_haar_sample_batched_unitary():

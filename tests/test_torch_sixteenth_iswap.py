@@ -27,6 +27,7 @@ from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.opt import costs
 from slam_decomposition_torch.opt.optimizer import TemplateOptimizer
 from slam_decomposition_torch.opt.samplers import haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 ANGLE = np.pi / 32  # g2 of the sixteenth-iSwap: a sixteenth of iSwap's pi/2
 DEPTHS = list(range(2, 25))
@@ -37,17 +38,6 @@ HIST = {4: 4, 5: 23, 6: 64, 7: 252, 8: 613, 9: 1540, 10: 2920, 11: 5354, 12: 872
         15: 21618, 16: 24813, 17: 2555, 18: 999, 19: 314, 20: 69, 21: 15, 22: 2}
 # four depth-13 targets that the port solves at depth 13 from these starts
 DEPTH13 = [6, 29, 33, 53]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module, restored after it: the plain
-    versions here run many small ops, where extra threads only add
-    synchronisation (and contend with the other test processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _q():

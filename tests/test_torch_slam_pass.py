@@ -26,6 +26,7 @@ from slam_decomposition_torch.config import JAX_DATA_DIR
 from slam_decomposition_torch.models import gates as G
 from slam_decomposition_torch.transpile import ir, library, passes
 from slam_decomposition_torch.transpile import syc_decompose as syc
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 ATOL = 1e-12  # gate matrices: the same expm up to host rounding

@@ -24,6 +24,7 @@ from slam_decomposition_torch.explore import smush_volume as sv
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.ops import threefry
 from slam_decomposition_torch.opt.samplers import haar_sample
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 

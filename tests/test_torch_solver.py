@@ -20,17 +20,9 @@ from slam_decomposition_tpu.opt.samplers import haar_sample
 
 from slam_decomposition_torch.opt.gauss_newton import ChainSolver
 from slam_decomposition_torch.pipeline import decompose_haar
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 B, R = 16, 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("k", [2, 3])

@@ -19,20 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ROOT / "scripts"
 # what the scripts write and the tools must not
 PROTECTED = [ROOT / "docs", ROOT / "fidelity_attribution.json",
              ROOT / "slam_decomposition_tpu" / "data" / "snail_speed_limit.json"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _digest() -> str:

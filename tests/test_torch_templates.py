@@ -24,6 +24,7 @@ from slam_decomposition_torch.models import hamiltonians as tham
 from slam_decomposition_torch.models import templates as tt
 from slam_decomposition_torch.ops import su2 as tsu2
 from slam_decomposition_torch.ops.expm import expm_taylor
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 ATOL = 1e-12
 

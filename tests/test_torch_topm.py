@@ -24,17 +24,9 @@ from slam_decomposition_torch.models.templates import build_ansatz, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.opt import gauss_newton as gn
 from slam_decomposition_torch.opt.gauss_newton import keep_top_m, make_solver
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 R = 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(B, k=2, seed=8, R=R):

@@ -33,6 +33,7 @@ from slam_decomposition_torch.opt import costs
 from slam_decomposition_torch.opt.gauss_newton import ChainSolver, GeneralSolver, make_solver
 from slam_decomposition_torch.opt.samplers import haar_sample
 from slam_decomposition_torch.utils.playground import ParallelDriveExplorer
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 CPU = "cpu"
 ARTIFACT = pathlib.Path(__file__).resolve().parents[1] / "slam_decomposition_tpu" / "data" / "improved_swap_2pulse.json"

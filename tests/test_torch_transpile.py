@@ -33,6 +33,7 @@ from slam_decomposition_torch.transpile.batch_synth import (
     _product_steps_batch,
     sqiswap_decompose_batch,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 # numpy on both sides: matrices are built by the same code, so 1e-12 only
 # leaves room for the order of host matrix products

@@ -26,17 +26,9 @@ from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.utils import mfu, visualize as vz
 from slam_decomposition_torch.utils.profiling import PhaseTimer, device_trace, timed
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one intra-op thread beside the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
