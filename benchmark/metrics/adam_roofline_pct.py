@@ -1,0 +1,7 @@
+"""The adam kernel's share of its roofline (`roofline.share`), in %."""
+
+from benchmark.metrics.roofline import share
+
+
+def read(ctx):
+    return share(ctx, "adam")
