@@ -686,12 +686,14 @@ def phase_generic_vs_instance(stats, k=12, targets=DEPTH_DEEP_B, restarts=API_RE
 
     def lm_generic(x):
         xo, fo = torch.empty_like(x), torch.empty(L, device=dev)
-        ck._launch("slam_lm_chain_generic", p(x), p(lanes_t), p(g32), i(ck.LM32_ITERS), i(k), i(L), p(xo), p(fo))
+        ck._launch("slam_lm_chain_generic", p(x), p(lanes_t), p(g32), i(ck.LM32_ITERS), i(k), i(L), p(xo), p(fo),
+                   None)
         return xo, fo
 
     def polish_generic(x):
         xo, fo = torch.empty_like(x), torch.empty(x.shape[0], device=dev, dtype=torch.float64)
-        ck._launch("slam_polish_chain_generic", p(x), p(T), p(g64), i(ck.LM_ITERS), i(k), i(x.shape[0]), p(xo), p(fo))
+        ck._launch("slam_polish_chain_generic", p(x), p(T), p(g64), i(ck.LM_ITERS), i(k), i(x.shape[0]), p(xo), p(fo),
+                   None)
         return xo, fo
 
     s25 = sched[:ADAM_PARITY_ITERS].contiguous()

@@ -33,6 +33,7 @@ from slam_decomposition_torch.coverage.deduce import deduce_qlr_consequences
 from slam_decomposition_torch.coverage.polytope import ConvexPolytope, Polytope, _convex_subset, convex_subtract
 from slam_decomposition_torch.models.gates import Gate
 from slam_decomposition_torch.ops import weyl
+from slam_decomposition_torch.utils import profiling
 
 ROW_TOL = 1e-8  # membership tolerance, scaled per row by max(|row|, 1)
 IDENTITY_TOL = 1e-9
@@ -359,19 +360,28 @@ def _checked(idx: np.ndarray) -> np.ndarray:
 def _layer_index(coverage, targets, device):
     """(index into the layers of the cheapest covering layer, -1 for the
     identity class, -2 for a target in no layer; (N,) int64 numpy) and the
-    layers (every entry of cost > 0, by cost)."""
-    device = device_of(targets, device)
-    targets = torch.as_tensor(targets)
-    if targets.ndim == 2:
-        targets = targets[None]
-    layers = _layers(coverage)
-    tables = _layer_tables(layers, device)
-    out = []
-    for s in range(0, targets.shape[0], KS_CHUNK):
-        U = targets[s : s + KS_CHUNK].to(device=device, dtype=torch.complex128)
-        reps = weyl.monodromy_coords(U)[..., :3]  # (n, 2, 3)
-        out.append(_index_of_reps(reps, tables).cpu().numpy())
-    return np.concatenate(out), layers
+    layers (every entry of cost > 0, by cost).
+
+    Spans (``utils.profiling``): ``ks`` the call, ``ks.coords`` the
+    monodromy coordinates, ``ks.member`` the membership test; the row
+    tables and the wait for the device's answer stay in ``ks``'s own
+    time."""
+    with profiling.span("ks"):
+        device = device_of(targets, device)
+        targets = torch.as_tensor(targets)
+        if targets.ndim == 2:
+            targets = targets[None]
+        layers = _layers(coverage)
+        tables = _layer_tables(layers, device)
+        out = []
+        for s in range(0, targets.shape[0], KS_CHUNK):
+            U = targets[s : s + KS_CHUNK].to(device=device, dtype=torch.complex128)
+            with profiling.span("ks.coords"):
+                reps = weyl.monodromy_coords(U)[..., :3]  # (n, 2, 3)
+            with profiling.span("ks.member"):
+                idx = _index_of_reps(reps, tables)
+            out.append(idx.cpu().numpy())
+        return np.concatenate(out), layers
 
 
 def monodromy_ks_of_reps(coverage, reps, device=DEFAULT_DEVICE) -> np.ndarray:

@@ -399,4 +399,19 @@ struct Carve {
   }
 };
 
+// ------------------------------------------------------------ counters
+// n added to a counter in device memory (the LM's count of J builds, read by
+// the program's tracing): one atomic reduction on the card, a plain add on
+// the host. On the card it is written in PTX: an atomicAdd, which the
+// compiler takes to touch memory the lane's workspace may share, changed how
+// the depth-generic programs were compiled (their x and f moved in the last
+// f32 bits), where this leaves them bit for bit as without a counter.
+SLAM_HD void count_add(unsigned long long* counter, int n) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("red.add.u64 [%0], %1;" ::"l"(counter), "l"((unsigned long long)n));
+#else
+  *counter += (unsigned long long)n;
+#endif
+}
+
 }  // namespace slam

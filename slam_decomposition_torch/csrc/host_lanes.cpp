@@ -5,7 +5,8 @@
 // ranking pass and a double one for the polish) run their steps as loops
 // over the team's threads (chain_common.cuh HostTeam), block by block as the
 // kernels cut the lanes, a team past the last lane repeating lane L-1
-// without storing.
+// without storing. The LM's and the polish's entries take a counter of
+// J builds (may be null), as the CUDA launchers do.
 // The CPU tests compile it with a host C++ compiler
 // (tests/test_torch_kernel_lanes.py) and hold the kernels' arithmetic
 // against the plain PyTorch versions; nothing on the main path uses it.
@@ -30,13 +31,13 @@ template <int K, bool Cost> static void adam_k(const float* x0, const float* tgt
     adam_team_io<K, Cost>(tm, ws, G, x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
 }
 // R = float: the f32 ranking pass; R = double: the polish
-template <typename R, int K> static void lm_k(const R* x0, const R* tgt, const R* gates, int iters, int L, R* xout, R* fout) {
+template <typename R, int K> static void lm_k(const R* x0, const R* tgt, const R* gates, int iters, int L, R* xout, R* fout, unsigned long long* rebuilds) {
   GateNz<float> G[K]; gate_lists<float, K>(gates, G);
   GateNz<R> GR[K]; gate_lists<R, K>(gates, GR);
   LmWs<R, K> ws;
   HostTeam<kLmTeam, LmThread<R, K>> tm;
   for (int lane = 0; lane < (L + kLmLanes - 1) / kLmLanes * kLmLanes; ++lane)
-    lm_team_io<R, K>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+    lm_team_io<R, K>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout, rebuilds);
 }
 // the instance of depth k (1..12); Adam's with the cost when fout is given
 template <int K> static void adam_any(const float* x0, const float* tgt, const float* gates, const float* sched, int iters, int L, float* xout, float* fout) {
@@ -62,7 +63,7 @@ template <bool Cost> static void adam_gen(const float* x0, const float* tgt, con
       adam_gen_team_io<SB, Cost>(tm, ws, gates, x0, tgt, sched, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
   });
 }
-template <typename R> static void lm_gen(const R* x0, const R* tgt, const R* gates, int iters, int k, int L, R* xout, R* fout) {
+template <typename R> static void lm_gen(const R* x0, const R* tgt, const R* gates, int iters, int k, int L, R* xout, R* fout, unsigned long long* rebuilds) {
   std::vector<GateNz<float>> G(k);
   std::vector<GateNz<R>> GR(k);
   for (int idx = 0; idx < 8 * k; ++idx) {
@@ -76,7 +77,7 @@ template <typename R> static void lm_gen(const R* x0, const R* tgt, const R* gat
     constexpr int SB = decltype(sb)::value;
     HostTeam<kLmTeam, LmGenThread<R, SB>> tm;
     for (int lane = 0; lane < (L + lanes - 1) / lanes * lanes; ++lane)
-      lm_gen_team_io<R, SB>(tm, ws, G.data(), GR.data(), x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+      lm_gen_team_io<R, SB>(tm, ws, G.data(), GR.data(), x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout, rebuilds);
   });
 }
 extern "C" {
@@ -86,13 +87,13 @@ void adam_host(const float* x0, const float* tgt, const float* gates, const floa
   SLAM_BY_K(k, CALL)
 #undef CALL
 }
-void lm_host(const float* x0, const float* tgt, const float* gates, int iters, int k, int L, float* xout, float* fout) {
-#define CALL(K) lm_k<float, K>(x0, tgt, gates, iters, L, xout, fout)
+void lm_host(const float* x0, const float* tgt, const float* gates, int iters, int k, int L, float* xout, float* fout, unsigned long long* rebuilds) {
+#define CALL(K) lm_k<float, K>(x0, tgt, gates, iters, L, xout, fout, rebuilds)
   SLAM_BY_K(k, CALL)
 #undef CALL
 }
-void polish_host(const double* x0, const double* tgt, const double* gates, int iters, int k, int L, double* xout, double* fout) {
-#define CALL(K) lm_k<double, K>(x0, tgt, gates, iters, L, xout, fout)
+void polish_host(const double* x0, const double* tgt, const double* gates, int iters, int k, int L, double* xout, double* fout, unsigned long long* rebuilds) {
+#define CALL(K) lm_k<double, K>(x0, tgt, gates, iters, L, xout, fout, rebuilds)
   SLAM_BY_K(k, CALL)
 #undef CALL
 }
@@ -101,11 +102,11 @@ void adam_host_generic(const float* x0, const float* tgt, const float* gates, co
   if (fout) adam_gen<true>(x0, tgt, gates, sched, iters, k, L, xout, fout);
   else adam_gen<false>(x0, tgt, gates, sched, iters, k, L, xout, fout);
 }
-void lm_host_generic(const float* x0, const float* tgt, const float* gates, int iters, int k, int L, float* xout, float* fout) {
-  lm_gen<float>(x0, tgt, gates, iters, k, L, xout, fout);
+void lm_host_generic(const float* x0, const float* tgt, const float* gates, int iters, int k, int L, float* xout, float* fout, unsigned long long* rebuilds) {
+  lm_gen<float>(x0, tgt, gates, iters, k, L, xout, fout, rebuilds);
 }
-void polish_host_generic(const double* x0, const double* tgt, const double* gates, int iters, int k, int L, double* xout, double* fout) {
-  lm_gen<double>(x0, tgt, gates, iters, k, L, xout, fout);
+void polish_host_generic(const double* x0, const double* tgt, const double* gates, int iters, int k, int L, double* xout, double* fout, unsigned long long* rebuilds) {
+  lm_gen<double>(x0, tgt, gates, iters, k, L, xout, fout, rebuilds);
 }
 // the generic blocks at depth k: kernel 0 Adam, 1 LM, 2 polish -> lanes a
 // block, bytes of one lane's workspace, bytes of gate lists in the block

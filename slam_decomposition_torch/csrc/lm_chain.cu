@@ -44,15 +44,19 @@ SLAM_LM_DEPTH(extern, 12)
 
 // K = 13..79: the depth-generic program (lm_chain_generic.cu)
 extern "C" cudaError_t slam_lm_chain_generic(const void* x0, const void* tgt, const void* gates, int iters,
-                                             int k, int L, void* xout, void* fout, void* stream);
+                                             int k, int L, void* xout, void* fout, void* rebuilds,
+                                             void* stream);
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64
 // -> xout (L, 6(k+1)) f32, fout (L,) f32. k must be 1, ..., 79 (1..12 run
-// their instance, 13..79 the depth-generic program).
+// their instance, 13..79 the depth-generic program). rebuilds: null, or one
+// int64 in device memory to which each lane adds its number of iterations
+// that built J, A and b.
 extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void* gates,
-                                     int iters, int k, int L, void* xout, void* fout,
+                                     int iters, int k, int L, void* xout, void* fout, void* rebuilds,
                                      void* stream) {
-  if (k > slam::kInstMaxK) return slam_lm_chain_generic(x0, tgt, gates, iters, k, L, xout, fout, stream);
+  if (k > slam::kInstMaxK)
+    return slam_lm_chain_generic(x0, tgt, gates, iters, k, L, xout, fout, rebuilds, stream);
   if (L <= 0) return cudaSuccess;
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
@@ -63,8 +67,9 @@ extern "C" cudaError_t slam_lm_chain(const void* x0, const void* tgt, const void
   const float* g = static_cast<const float*>(gates);
   float* xo = static_cast<float*>(xout);
   float* fo = static_cast<float*>(fout);
+  auto* n = static_cast<unsigned long long*>(rebuilds);
   return slam::by_k(k, [&](auto K) {
-    return slam_lm::launch<decltype(K)::value>(grid, block, s, a, t, g, iters, L, xo, fo);
+    return slam_lm::launch<decltype(K)::value>(grid, block, s, a, t, g, iters, L, xo, fo, n);
   });
 }
 

@@ -29,37 +29,38 @@ template <int K>
 __device__ __forceinline__ void lm_block(slam::GateNz<float>* sG, slam::LmWs<float, K>* ws,
                                          const float* __restrict__ x0, const float* __restrict__ tgt,
                                          const float* __restrict__ gates, int iters, int L,
-                                         float* __restrict__ xout, float* __restrict__ fout) {
+                                         float* __restrict__ xout, float* __restrict__ fout,
+                                         unsigned long long* rebuilds) {
   for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) slam::gate_nz_entry(gates, sG, idx);
   __syncthreads();
   const int w = threadIdx.x / slam::kLmTeam;
   const int lane = blockIdx.x * kLanes + w;
   slam::DevTeam<slam::kLmTeam, slam::LmThread<float, K>> tm(threadIdx.x % slam::kLmTeam);
   slam::lm_team_io<float, K>(tm, ws[w], sG, sG, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout,
-                             fout);
+                             fout, rebuilds);
 }
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
     lm_chain_kernel(const float* __restrict__ x0, const float* __restrict__ tgt,
                     const float* __restrict__ gates, int iters, int L,
-                    float* __restrict__ xout, float* __restrict__ fout) {
+                    float* __restrict__ xout, float* __restrict__ fout, unsigned long long* rebuilds) {
   if constexpr (sizeof(Smem<K>) <= slam::kStaticSmemMax) {
     __shared__ slam::GateNz<float> sG[K];
     __shared__ slam::LmWs<float, K> ws[kLanes];
-    lm_block<K>(sG, ws, x0, tgt, gates, iters, L, xout, fout);
+    lm_block<K>(sG, ws, x0, tgt, gates, iters, L, xout, fout, rebuilds);
   } else {
     Smem<K>& sm = slam::dynamic_smem<Smem<K>>();
-    lm_block<K>(sm.G, sm.ws, x0, tgt, gates, iters, L, xout, fout);
+    lm_block<K>(sm.G, sm.ws, x0, tgt, gates, iters, L, xout, fout, rebuilds);
   }
 }
 
 template <int K>
 cudaError_t launch(dim3 grid, dim3 block, cudaStream_t s, const float* a, const float* t, const float* g,
-                   int iters, int L, float* xo, float* fo) {
+                   int iters, int L, float* xo, float* fo, unsigned long long* rebuilds) {
   cudaError_t err = slam::allow_smem<Smem<K>>(lm_chain_kernel<K>);
   if (err != cudaSuccess) return err;
-  lm_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo);
+  lm_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo, rebuilds);
   return cudaGetLastError();
 }
 
@@ -79,5 +80,6 @@ template <int K> cudaError_t occupancy(int* blocks, int* smem, int* dynamic) {
 // (SLAM_LM_DEPTH(, K)).
 #define SLAM_LM_DEPTH(ext, K) \
   ext template cudaError_t slam_lm::launch<K>( \
-      dim3, dim3, cudaStream_t, const float*, const float*, const float*, int, int, float*, float*); \
+      dim3, dim3, cudaStream_t, const float*, const float*, const float*, int, int, float*, float*, \
+      unsigned long long*); \
   ext template cudaError_t slam_lm::occupancy<K>(int*, int*, int*);

@@ -28,10 +28,11 @@
 
 // x0 (L, 6(k+1)) f32, tgt (L, 4, 4) complex64, gates (k, 4, 4) complex64
 // -> xout (L, 6(k+1)) f32, fout (L,) f32, through the depth-generic program
-// for any k in 1..kMaxK.
+// for any k in 1..kMaxK; rebuilds as slam_lm_chain's (null, or an int64 in
+// device memory that counts the lanes' J builds).
 extern "C" cudaError_t slam_lm_chain_generic(const void* x0, const void* tgt, const void* gates, int iters,
-                                             int k, int L, void* xout, void* fout, void* stream) {
-  return slam::lm_gen_launch<float>(x0, tgt, gates, iters, k, L, xout, fout, stream);
+                                             int k, int L, void* xout, void* fout, void* rebuilds, void* stream) {
+  return slam::lm_gen_launch<float>(x0, tgt, gates, iters, k, L, xout, fout, rebuilds, stream);
 }
 
 // resident blocks per SM of the program at depth k on the current device,

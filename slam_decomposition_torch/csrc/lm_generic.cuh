@@ -355,9 +355,10 @@ template <typename R, class Th> SLAM_HD void lm_gen_jacobian_column(int q, const
 // are the f32 gate lists, GR those of the residual's type. Ends with the
 // final accepted ||r||^2 in every thread's f0. Slot s of thread t is
 // parameter t + 32 s; every slot loop runs to SB and does what lm_team.cuh
-// does for s < ns only.
+// does for s < ns only. Returns the number of iterations that built J and
+// b, as lm_team does.
 template <typename R, int SB, class Team>
-SLAM_HD void lm_gen_team(Team& tm, const LmGenWs<R>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
+SLAM_HD int lm_gen_team(Team& tm, const LmGenWs<R>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
   using Th = LmGenThread<R, SB>;
   constexpr int JR = Th::JR;
   const int N = ws.N, NP = ws.NP, ns = lm_gen_slots(ws.K);
@@ -375,9 +376,11 @@ SLAM_HD void lm_gen_team(Team& tm, const LmGenWs<R>& ws, const GateNz<float>* G,
     th.fresh = true;
   }
   tm.sync();
+  int rebuilds = 0;
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     if (tm.any().fresh) {  // uniform
+      ++rebuilds;
       if constexpr (kF64) {  // the f32 chain parts at float(x), and their phase
         SLAM_EACH(tm, t) {
 #pragma unroll
@@ -556,16 +559,18 @@ SLAM_HD void lm_gen_team(Team& tm, const LmGenWs<R>& ws, const GateNz<float>* G,
     }
     tm.sync();
   }
+  return rebuilds;
 }
 
 // lm_team_io: one lane from the raw arrays: zero the padding of J's rows
 // and of p, load x0 (the polish reduces its angles mod 4 pi) and the
 // target, run, store (only where `store`: a team past the last lane
-// repeats lane L-1)
+// repeats lane L-1); the lane's leader adds its count of J builds to
+// `rebuilds` where that is given
 template <typename R, int SB, class Team>
 SLAM_HD void lm_gen_team_io(Team& tm, const LmGenWs<R>& ws, const GateNz<float>* G, const GateNz<R>* GR,
                             const R* __restrict__ x0, const R* __restrict__ tgt, int iters, int lane, bool store,
-                            R* __restrict__ xout, R* __restrict__ fout) {
+                            R* __restrict__ xout, R* __restrict__ fout, unsigned long long* rebuilds) {
   const int N = ws.N, NP = ws.NP;
   constexpr bool kF64 = std::is_same_v<R, double>;
   SLAM_EACH(tm, t) {
@@ -590,7 +595,7 @@ SLAM_HD void lm_gen_team_io(Team& tm, const LmGenWs<R>& ws, const GateNz<float>*
     }
   }
   tm.sync();
-  lm_gen_team<R, SB>(tm, ws, G, GR, iters);
+  const int built = lm_gen_team<R, SB>(tm, ws, G, GR, iters);
   SLAM_EACH(tm, t) {
     for (int q = t; q < N; q += kLmTeam) {
       if (store) {
@@ -598,7 +603,10 @@ SLAM_HD void lm_gen_team_io(Team& tm, const LmGenWs<R>& ws, const GateNz<float>*
         else xout[(size_t)lane * N + q] = ws.x[q];
       }
     }
-    if (store && t == 0) fout[lane] = tm.th(t).f0;
+    if (store && t == 0) {
+      fout[lane] = tm.th(t).f0;
+      if (rebuilds != nullptr) count_add(rebuilds, built);
+    }
   }
 }
 
@@ -620,13 +628,14 @@ template <typename R, int SB>
 __global__ void __launch_bounds__(kLmTeam * lm_gen_lanes_cap(SB), 1)
     lm_gen_kernel(const R* __restrict__ x0, const R* __restrict__ tgt, const GateNz<float>* __restrict__ G,
                   const GateNz<R>* __restrict__ GR, int iters, int K, int L, int lanes, int lane_bytes,
-                  R* __restrict__ xout, R* __restrict__ fout) {
+                  R* __restrict__ xout, R* __restrict__ fout, unsigned long long* rebuilds) {
   extern __shared__ __align__(16) unsigned char lm_gen_smem[];
   const int w = threadIdx.x / kLmTeam;
   const int lane = blockIdx.x * lanes + w;
   const LmGenWs<R> ws(lm_gen_smem + (size_t)w * lane_bytes, K);
   DevTeam<kLmTeam, LmGenThread<R, SB>> tm(threadIdx.x % kLmTeam);
-  lm_gen_team_io<R, SB>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout);
+  lm_gen_team_io<R, SB>(tm, ws, G, GR, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout, fout,
+                        rebuilds);
 }
 
 // The current device's memory pool for the launches' gate lists. Freed
@@ -677,10 +686,11 @@ template <typename R> inline LmGenShape lm_gen_shape(int k) {
 
 // x0 (L, 6(k+1)), tgt (L, 4, 4) and gates (k, 4, 4), complex interleaved,
 // in R -> xout (L, 6(k+1)), fout (L,): the gate lists into stream-ordered
-// device memory from lm_gen_pool, then the lanes in depth k's bucket
+// device memory from lm_gen_pool, then the lanes in depth k's bucket, each
+// adding its count of J builds to `rebuilds` (an int64) unless that is null
 template <typename R>
 cudaError_t lm_gen_launch(const void* x0, const void* tgt, const void* gates, int iters, int k, int L, void* xout,
-                          void* fout, void* stream) {
+                          void* fout, void* rebuilds, void* stream) {
   if (k < 1 || k > kMaxK) return cudaErrorInvalidValue;
   if (L <= 0) return cudaSuccess;
   cudaError_t err = use_device_of(x0);
@@ -707,7 +717,7 @@ cudaError_t lm_gen_launch(const void* x0, const void* tgt, const void* gates, in
       if (e != cudaSuccess) return e;
       kernel<<<(L + sh.lanes - 1) / sh.lanes, sh.lanes * kLmTeam, sh.smem, st>>>(
           static_cast<const R*>(x0), static_cast<const R*>(tgt), G, GR, iters, k, L, sh.lanes, (int)sh.lane_bytes,
-          static_cast<R*>(xout), static_cast<R*>(fout));
+          static_cast<R*>(xout), static_cast<R*>(fout), static_cast<unsigned long long*>(rebuilds));
       return cudaGetLastError();
     });
   }

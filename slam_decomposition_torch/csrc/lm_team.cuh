@@ -319,9 +319,11 @@ template <int N> SLAM_HD void axpy_row(float a, const float* row, float* acc) {
 // iters LM iterations on the lane's parameters (ws.x for the f32 pass,
 // ws.xd for the polish; loaded, with the target, before the call); G are the
 // f32 gate lists, GR those of the residual's type (the polish's f64 chain).
-// Ends with the final accepted ||r||^2 in every thread's f0.
+// Ends with the final accepted ||r||^2 in every thread's f0; returns the
+// number of iterations that built J, A and b (the first, and each after an
+// accepted step).
 template <typename R, int K, class Team>
-SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
+SLAM_HD int lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR, int iters) {
   constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
   constexpr bool kF64 = std::is_same_v<R, double>;
   if constexpr (kF64) {
@@ -337,9 +339,11 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
     th.fresh = true;
   }
   tm.sync();
+  int rebuilds = 0;
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     if (tm.any().fresh) {  // uniform
+      ++rebuilds;
       if constexpr (kF64) {  // the f32 chain parts at float(x), and their phase
         SLAM_EACH(tm, t) {
 #pragma unroll
@@ -527,17 +531,20 @@ SLAM_HD void lm_team(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const Gat
     }
     tm.sync();
   }
+  return rebuilds;
 }
 
 // One lane from the raw arrays: load x0 and the target, run, store (the
 // store only where `store`: a team past the last lane repeats lane L-1).
 // The polish first reduces its angles mod 4 pi (u3 is 4 pi-periodic in
 // every angle) and keeps the f32 cast of the target for J. The host build
-// reuses one workspace for lane after lane.
+// reuses one workspace for lane after lane. Where `rebuilds` is given, the
+// lane's leader adds the lane's count of J builds to it at the end.
 template <typename R, int K, class Team>
 SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const GateNz<R>* GR,
                         const R* __restrict__ x0, const R* __restrict__ tgt, int iters, int lane,
-                        bool store, R* __restrict__ xout, R* __restrict__ fout) {
+                        bool store, R* __restrict__ xout, R* __restrict__ fout,
+                        unsigned long long* rebuilds) {
   constexpr int N = 6 * (K + 1), S = kLmSlots<K>;
   constexpr bool kF64 = std::is_same_v<R, double>;
   SLAM_EACH(tm, t) {
@@ -563,7 +570,7 @@ SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const 
     }
   }
   tm.sync();
-  lm_team<R, K>(tm, ws, G, GR, iters);
+  const int built = lm_team<R, K>(tm, ws, G, GR, iters);
   SLAM_EACH(tm, t) {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
@@ -573,7 +580,10 @@ SLAM_HD void lm_team_io(Team& tm, LmWs<R, K>& ws, const GateNz<float>* G, const 
         else xout[(size_t)lane * N + p] = ws.x[p];
       }
     }
-    if (store && t == 0) fout[lane] = tm.th(t).f0;
+    if (store && t == 0) {
+      fout[lane] = tm.th(t).f0;
+      if (rebuilds != nullptr) count_add(rebuilds, built);
+    }
   }
 }
 

@@ -50,15 +50,19 @@ SLAM_POLISH_DEPTH(extern, 12)
 
 // K = 13..79: the depth-generic program (polish_chain_generic.cu)
 extern "C" cudaError_t slam_polish_chain_generic(const void* x0, const void* tgt, const void* gates, int iters,
-                                                 int k, int L, void* xout, void* fout, void* stream);
+                                                 int k, int L, void* xout, void* fout, void* rebuilds,
+                                                 void* stream);
 
 // x0 (L, 6(k+1)) f64, tgt (L, 4, 4) complex128, gates (k, 4, 4) complex128
 // -> xout (L, 6(k+1)) f64, fout (L,) f64. k must be 1, ..., 79 (1..12 run
-// their instance, 13..79 the depth-generic program).
+// their instance, 13..79 the depth-generic program). rebuilds: null, or one
+// int64 in device memory to which each lane adds its number of iterations
+// that built J, A and b.
 extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const void* gates,
-                                         int iters, int k, int L, void* xout, void* fout,
+                                         int iters, int k, int L, void* xout, void* fout, void* rebuilds,
                                          void* stream) {
-  if (k > slam::kInstMaxK) return slam_polish_chain_generic(x0, tgt, gates, iters, k, L, xout, fout, stream);
+  if (k > slam::kInstMaxK)
+    return slam_polish_chain_generic(x0, tgt, gates, iters, k, L, xout, fout, rebuilds, stream);
   if (L <= 0) return cudaSuccess;
   cudaError_t err = slam::use_device_of(x0);
   if (err != cudaSuccess) return err;
@@ -69,8 +73,9 @@ extern "C" cudaError_t slam_polish_chain(const void* x0, const void* tgt, const 
   const double* g = static_cast<const double*>(gates);
   double* xo = static_cast<double*>(xout);
   double* fo = static_cast<double*>(fout);
+  auto* n = static_cast<unsigned long long*>(rebuilds);
   return slam::by_k(k, [&](auto K) {
-    return slam_polish::launch<decltype(K)::value>(grid, block, s, a, t, g, iters, L, xo, fo);
+    return slam_polish::launch<decltype(K)::value>(grid, block, s, a, t, g, iters, L, xo, fo, n);
   });
 }
 

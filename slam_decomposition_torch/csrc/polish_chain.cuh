@@ -32,7 +32,7 @@ __device__ __forceinline__ void polish_block(slam::GateNz<float>* sG, slam::Gate
                                              slam::LmWs<double, K>* ws, const double* __restrict__ x0,
                                              const double* __restrict__ tgt, const double* __restrict__ gates,
                                              int iters, int L, double* __restrict__ xout,
-                                             double* __restrict__ fout) {
+                                             double* __restrict__ fout, unsigned long long* rebuilds) {
   for (int idx = threadIdx.x; idx < 8 * K; idx += blockDim.x) {
     slam::gate_nz_entry(gates, sG, idx);
     slam::gate_nz_entry(gates, sGd, idx);
@@ -42,31 +42,32 @@ __device__ __forceinline__ void polish_block(slam::GateNz<float>* sG, slam::Gate
   const int lane = blockIdx.x * kLanes + w;
   slam::DevTeam<slam::kLmTeam, slam::LmThread<double, K>> tm(threadIdx.x % slam::kLmTeam);
   slam::lm_team_io<double, K>(tm, ws[w], sG, sGd, x0, tgt, iters, lane < L ? lane : L - 1, lane < L, xout,
-                              fout);
+                              fout, rebuilds);
 }
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
     polish_chain_kernel(const double* __restrict__ x0, const double* __restrict__ tgt,
                         const double* __restrict__ gates, int iters, int L,
-                        double* __restrict__ xout, double* __restrict__ fout) {
+                        double* __restrict__ xout, double* __restrict__ fout,
+                        unsigned long long* rebuilds) {
   if constexpr (sizeof(Smem<K>) <= slam::kStaticSmemMax) {
     __shared__ slam::GateNz<float> sG[K];
     __shared__ slam::GateNz<double> sGd[K];
     __shared__ slam::LmWs<double, K> ws[kLanes];
-    polish_block<K>(sG, sGd, ws, x0, tgt, gates, iters, L, xout, fout);
+    polish_block<K>(sG, sGd, ws, x0, tgt, gates, iters, L, xout, fout, rebuilds);
   } else {
     Smem<K>& sm = slam::dynamic_smem<Smem<K>>();
-    polish_block<K>(sm.G, sm.Gd, sm.ws, x0, tgt, gates, iters, L, xout, fout);
+    polish_block<K>(sm.G, sm.Gd, sm.ws, x0, tgt, gates, iters, L, xout, fout, rebuilds);
   }
 }
 
 template <int K>
 cudaError_t launch(dim3 grid, dim3 block, cudaStream_t s, const double* a, const double* t, const double* g,
-                   int iters, int L, double* xo, double* fo) {
+                   int iters, int L, double* xo, double* fo, unsigned long long* rebuilds) {
   cudaError_t err = slam::allow_smem<Smem<K>>(polish_chain_kernel<K>);
   if (err != cudaSuccess) return err;
-  polish_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo);
+  polish_chain_kernel<K><<<grid, block, (slam::kDynSmem<Smem<K>>), s>>>(a, t, g, iters, L, xo, fo, rebuilds);
   return cudaGetLastError();
 }
 
@@ -86,5 +87,6 @@ template <int K> cudaError_t occupancy(int* blocks, int* smem, int* dynamic) {
 // (SLAM_POLISH_DEPTH(, K)).
 #define SLAM_POLISH_DEPTH(ext, K) \
   ext template cudaError_t slam_polish::launch<K>( \
-      dim3, dim3, cudaStream_t, const double*, const double*, const double*, int, int, double*, double*); \
+      dim3, dim3, cudaStream_t, const double*, const double*, const double*, int, int, double*, double*, \
+      unsigned long long*); \
   ext template cudaError_t slam_polish::occupancy<K>(int*, int*, int*);

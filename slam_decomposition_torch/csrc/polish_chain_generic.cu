@@ -28,10 +28,11 @@
 
 // x0 (L, 6(k+1)) f64, tgt (L, 4, 4) complex128, gates (k, 4, 4) complex128
 // -> xout (L, 6(k+1)) f64, fout (L,) f64, through the depth-generic program
-// for any k in 1..kMaxK.
+// for any k in 1..kMaxK; rebuilds as slam_polish_chain's (null, or an int64 in
+// device memory that counts the lanes' J builds).
 extern "C" cudaError_t slam_polish_chain_generic(const void* x0, const void* tgt, const void* gates, int iters,
-                                                 int k, int L, void* xout, void* fout, void* stream) {
-  return slam::lm_gen_launch<double>(x0, tgt, gates, iters, k, L, xout, fout, stream);
+                                                 int k, int L, void* xout, void* fout, void* rebuilds, void* stream) {
+  return slam::lm_gen_launch<double>(x0, tgt, gates, iters, k, L, xout, fout, rebuilds, stream);
 }
 
 // resident blocks per SM of the program at depth k on the current device,

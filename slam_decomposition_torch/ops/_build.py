@@ -29,16 +29,17 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# launcher name -> argtypes (the trailing c_void_p is the CUDA stream)
+# launcher name -> argtypes (the trailing c_void_p is the CUDA stream; the
+# LM's and the polish's one before it their counter of J builds, may be null)
 # (the *_generic entries run the depth-generic program at any k in 1..79;
 # the others hand k >= 13 to it and run their instance at k <= 12)
 SIGNATURES = {
     "slam_adam_chain": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],  # xout, fout (may be null)
-    "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_lm_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "slam_polish_chain": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "slam_adam_chain_generic": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "slam_lm_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "slam_polish_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_lm_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "slam_polish_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 MAX_THREADS_PER_SM = 2048  # sm_90
 # kernel -> its occupancy query (k, *resident blocks per SM, *threads per block,

@@ -17,6 +17,11 @@ A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (csrc/*.cu) or raises; there is no
 fallback. Each wrapper counts its launches in ``<wrapper>.launches``;
 ``lane_counts()`` gives the lanes of each wrapper's calls, launched or plain.
+While the program's tracing is on (``utils.profiling``), each call also
+adds its launch and lanes to the program's table under (wrapper, k,
+iterations), and the LM and the polish count the iterations that build J, A
+and b, lane by lane, into that key's accumulator: the kernels on the card,
+the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from slam_decomposition_torch.models.templates import chain_unitary
+from slam_decomposition_torch.utils import profiling
 
 # chain depths with a CUDA kernel (csrc/chain_common.cuh kMaxK): 1..12 as
 # one template instance each (INSTANCE_KS, kInstMaxK), 13..79 (n = 84..480)
@@ -124,7 +130,7 @@ def _cg(A: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
-def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False):
+def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False, rebuilds=None):
     """Mixed-precision Levenberg-Marquardt on per-lane residuals (JAX
     gauss_newton.lm_one): ``res_fn(x)`` (L, n) -> (L, m) gives the residual,
     the trial step and the accept test in x's dtype; ``res32_fn`` is the same
@@ -135,13 +141,19 @@ def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False
     clipped to [1e-14, 1e3]; a NaN trial step is "not improved". ``project``
     clamps a trial point into the bounds. Returns (x, final accepted
     ||r||^2), and with ``history`` also the accepted ||r||^2 after each
-    iteration, (L, iters)."""
+    iteration, (L, iters). ``rebuilds`` (an int64 tensor) gets the number of
+    iterations, summed over the lanes, in which a kernel builds J, A and b:
+    the first, and each after an accepted step (this loop builds them in
+    every iteration; a kernel keeps them where x did not move)."""
     n = x.shape[-1]
     r = res_fn(x)
     f0 = (r * r).sum(-1)
     lam = torch.full_like(f0, LAM0)
+    fresh = torch.ones_like(f0, dtype=torch.bool)  # x moved since J was last built
     hist = []
     for _ in range(iters):
+        if rebuilds is not None:
+            rebuilds += fresh.sum()
         J = jacobian(res32_fn, x.float())
         Jt = J.transpose(-2, -1)
         eye = torch.eye(n, dtype=J.dtype, device=x.device)
@@ -154,6 +166,7 @@ def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False
         rn = res_fn(xn)
         fn = (rn * rn).sum(-1)
         imp = fn < f0  # NaN < f0 is False
+        fresh = imp
         lam = torch.where(imp, lam * LAM_DOWN, lam * LAM_UP).clamp(LAM_MIN, LAM_MAX)
         x = torch.where(imp[:, None], xn, x)
         r = torch.where(imp[:, None], rn, r)
@@ -165,15 +178,17 @@ def lm_loop(res_fn, res32_fn, x, iters: int, project=None, history: bool = False
     return x, f0
 
 
-def lm_chain_ref(x, tgt, gates, iters: int = LM32_ITERS):
+def lm_chain_ref(x, tgt, gates, iters: int = LM32_ITERS, rebuilds=None):
     """Plain mixed-precision LM on the chain's phase residual: the residual,
     trial step and accept test in x's dtype (f32 for the ranking pass, f64
     for the polish); J, normal equations and CG in f32. Returns (x, final
-    accepted ||r||^2)."""
+    accepted ||r||^2); ``rebuilds`` counts J's builds as the kernel does
+    (``lm_loop``)."""
     tgt32 = tgt.to(torch.complex64)
     gates32 = gates.to(torch.complex64)
     return lm_loop(
-        lambda x1: phase_residual(x1, tgt, gates), lambda x1: phase_residual(x1, tgt32, gates32), x, iters
+        lambda x1: phase_residual(x1, tgt, gates), lambda x1: phase_residual(x1, tgt32, gates32), x, iters,
+        rebuilds=rebuilds,
     )
 
 
@@ -219,9 +234,9 @@ def reduce_angles(x: torch.Tensor) -> torch.Tensor:
     return x - FOUR_PI * torch.round(x / FOUR_PI)
 
 
-def polish_chain_ref(x, tgt, gates, iters: int = LM_ITERS):
+def polish_chain_ref(x, tgt, gates, iters: int = LM_ITERS, rebuilds=None):
     """Plain f64 polish -> (x, final accepted ||r||^2 in f64)."""
-    return lm_chain_ref(reduce_angles(x), tgt, gates, iters)
+    return lm_chain_ref(reduce_angles(x), tgt, gates, iters, rebuilds)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -278,6 +293,10 @@ def _p(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _p_or_null(t):
+    return None if t is None else _p(t)
+
+
 def adam_chain(x0, tgt, gates, sched, with_cost: bool = False):
     """Adam warm start: x0 (L, n) f32, tgt (L, 4, 4) complex64, gates
     (k, 4, 4) complex64, sched (iters, 3) f32 -> x (L, n) f32, or with
@@ -287,6 +306,7 @@ def adam_chain(x0, tgt, gates, sched, with_cost: bool = False):
     L, n, k = _check_lanes(x0, tgt, gates, torch.float32, torch.complex64)
     _check("sched", sched, torch.float32, (sched.shape[0], 3), x0.device)
     _lanes["adam_chain"].append(L)
+    profiling.count_launch("adam_chain", k, sched.shape[0], L)
     if not _kernel_target(x0, k):
         return adam_chain_ref(x0, tgt, gates, sched, with_cost)
     out = torch.empty_like(x0)
@@ -305,13 +325,14 @@ def lm_chain(x, tgt, gates, iters: int = LM32_ITERS):
     -> (x (L, n) f32, ||r||^2 (L,) f32)."""
     L, n, k = _check_lanes(x, tgt, gates, torch.float32, torch.complex64)
     _lanes["lm_chain"].append(L)
+    rebuilds = profiling.count_launch("lm_chain", k, iters, L, x.device)
     if not _kernel_target(x, k):
-        return lm_chain_ref(x, tgt, gates, iters)
+        return lm_chain_ref(x, tgt, gates, iters, rebuilds)
     xo = torch.empty_like(x)
     fo = torch.empty(L, dtype=torch.float32, device=x.device)
     _launch(
         "slam_lm_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
-        ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo),
+        ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo), _p_or_null(rebuilds),
     )
     lm_chain.launches += 1
     return xo, fo
@@ -322,13 +343,14 @@ def polish_chain(x, tgt, gates, iters: int = LM_ITERS):
     (x (L, n) f64 with angles reduced mod 4 pi, ||r||^2 (L,) f64)."""
     L, n, k = _check_lanes(x, tgt, gates, torch.float64, torch.complex128)
     _lanes["polish_chain"].append(L)
+    rebuilds = profiling.count_launch("polish_chain", k, iters, L, x.device)
     if not _kernel_target(x, k):
-        return polish_chain_ref(x, tgt, gates, iters)
+        return polish_chain_ref(x, tgt, gates, iters, rebuilds)
     xo = torch.empty_like(x)
     fo = torch.empty(L, dtype=torch.float64, device=x.device)
     _launch(
         "slam_polish_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
-        ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo),
+        ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo), _p_or_null(rebuilds),
     )
     polish_chain.launches += 1
     return xo, fo

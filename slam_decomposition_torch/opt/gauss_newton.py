@@ -40,6 +40,7 @@ from slam_decomposition_torch.models.templates import build_ansatz, chain_unitar
 from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.ops import weyl
 from slam_decomposition_torch.ops.kak_batch import make_analytic_init
+from slam_decomposition_torch.utils import profiling
 
 # lanes per LM chunk on the general path: forward-mode J holds n tangents of
 # every intermediate of eval_fn at once (JAX maps its f64 LM over 1024-lane
@@ -269,19 +270,20 @@ class ChainSolver:
         with ``top_m`` the m restarts of least square cost after Adam (the
         Adam kernel's cost instance), in ascending order of it; the LM
         kernel then runs on B * m lanes."""
-        B, R, n = x0s.shape
-        M = _checked_top_m(self.top_m, R)
-        t32 = tgt.to(torch.complex64)
-        tR = t32.repeat_interleave(R, dim=0).contiguous()
-        x = x0s.reshape(B * R, n).float().contiguous()
-        if self.top_m is None:
-            xs = ck.adam_chain(x, tR, self.gates32, self.sched)
-        else:
-            xs, cost = ck.adam_chain(x, tR, self.gates32, self.sched, with_cost=True)
-            xs = gather_restarts(xs.view(B, R, n), keep_top_m(cost.view(B, R), M))
-            tR = t32.repeat_interleave(M, dim=0).contiguous()
-        xs, fs = ck.lm_chain(xs, tR, self.gates32, self.lm32_iters)
-        return xs.view(B, M, n), fs.view(B, M)
+        with profiling.span("solver.rank"):
+            B, R, n = x0s.shape
+            M = _checked_top_m(self.top_m, R)
+            t32 = tgt.to(torch.complex64)
+            tR = t32.repeat_interleave(R, dim=0).contiguous()
+            x = x0s.reshape(B * R, n).float().contiguous()
+            if self.top_m is None:
+                xs = ck.adam_chain(x, tR, self.gates32, self.sched)
+            else:
+                xs, cost = ck.adam_chain(x, tR, self.gates32, self.sched, with_cost=True)
+                xs = gather_restarts(xs.view(B, R, n), keep_top_m(cost.view(B, R), M))
+                tR = t32.repeat_interleave(M, dim=0).contiguous()
+            xs, fs = ck.lm_chain(xs, tR, self.gates32, self.lm32_iters)
+            return xs.view(B, M, n), fs.view(B, M)
 
     def solve(self, x0s: torch.Tensor, tgt: torch.Tensor):
         """x0s (B, R, n) f64, tgt (B, 4, 4) complex128 -> (x (B, n) f64,
@@ -308,8 +310,9 @@ class ChainSolver:
         ``iters=0`` x is returned as it is, with the certificate of its
         residual."""
         iters = self.lm_iters if iters is None else iters
-        xs, f = ck.polish_chain(x, tgt.contiguous(), self.gates64, iters)
-        return (x if iters == 0 else xs), certificate(f)
+        with profiling.span("solver.polish"):
+            xs, f = ck.polish_chain(x, tgt.contiguous(), self.gates64, iters)
+            return (x if iters == 0 else xs), certificate(f)
 
     def certify(self, x: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         """The true f64 square cost of x against tgt."""

@@ -44,6 +44,7 @@ from slam_decomposition_torch.ops import weyl
 from slam_decomposition_torch.opt import costs as cost_lib
 from slam_decomposition_torch.opt.gauss_newton import make_solver
 from slam_decomposition_torch.opt.minimize import lbfgs
+from slam_decomposition_torch.utils import profiling
 
 # targets per solver call: bounds the device memory of one call (at 5
 # restarts 81920 lanes; the general path's Adam keeps every intermediate of
@@ -223,11 +224,13 @@ class TemplateOptimizer:
         return solve
 
     def _init_params(self, gen: torch.Generator, ansatz: Ansatz, batch: int, restarts: int) -> torch.Tensor:
-        """(batch, restarts, n) f64 uniform in the ansatz's box, on the CPU."""
-        lo = torch.as_tensor(ansatz.lower, dtype=torch.float64)
-        hi = torch.as_tensor(ansatz.upper, dtype=torch.float64)
-        u = torch.rand((batch, restarts, ansatz.n_params), generator=gen, dtype=torch.float64)
-        return lo + u * (hi - lo)
+        """(batch, restarts, n) f64 uniform in the ansatz's box, on the CPU
+        (the span ``optimizer.starts``)."""
+        with profiling.span("optimizer.starts"):
+            lo = torch.as_tensor(ansatz.lower, dtype=torch.float64)
+            hi = torch.as_tensor(ansatz.upper, dtype=torch.float64)
+            u = torch.rand((batch, restarts, ansatz.n_params), generator=gen, dtype=torch.float64)
+            return lo + u * (hi - lo)
 
     # ------------------------------------------------------------------
 

@@ -46,10 +46,6 @@ so J unchanged).
 
 from __future__ import annotations
 
-import sys
-
-import numpy as np
-
 # H100 SXM, dense, at the 700 W power limit (NVIDIA's data sheet)
 F32_PEAK = 67e12  # FLOP/s outside the tensor cores
 F64_PEAK = 34e12  # FLOP/s outside the tensor cores
@@ -120,39 +116,6 @@ def solve_flops_per_target(
     winner = polish_iters * lm_iter_flops(k, df64_residual=True) + 10 * chain_flops(k)
     certify = 20.0 * chain_flops(k) if cert == "f64" else 0.0
     return restarts * per_lane + winner + certify
-
-
-RANGES_FLOPS_PER_TARGET = 25e3  # the JAX package's model of the k-assignment (its mfu_report)
-
-
-def mfu_report(B: int, dt: float, t_ranges: float, ks, restarts: int, file=sys.stderr) -> dict:
-    """Print the bench's MFU line and return its numbers (JAX
-    ``mfu_report``), against this card's peaks: {"solve_gflops",
-    "solve_gflops_per_s", "mfu_vs_f32" (share of F32_PEAK), "mfu_vs_f64"
-    (of F64_PEAK), "ranges_gflops_per_s"}.
-
-    ``dt`` is the whole timed region (ranges + solve + download); the solve
-    rate uses dt - t_ranges and ``solve_flops_per_target`` of each target's
-    k (``ks``). The ranges stage is charged 25 kflop a target. The JAX
-    package's shares of the TPU's VPU and MXU peaks have no counterpart."""
-    uniq, cnt = np.unique(np.asarray(ks), return_counts=True)
-    total = sum(c * solve_flops_per_target(int(k), restarts) for k, c in zip(uniq.tolist(), cnt.tolist()))
-    t_solve = max(dt - t_ranges, 1e-9)
-    achieved = total / t_solve
-    out = {
-        "solve_gflops": round(total / 1e9, 1),
-        "solve_gflops_per_s": round(achieved / 1e9, 1),
-        "mfu_vs_f32": round(achieved / F32_PEAK, 4),
-        "mfu_vs_f64": round(achieved / F64_PEAK, 4),
-        "ranges_gflops_per_s": round(RANGES_FLOPS_PER_TARGET * B / max(t_ranges, 1e-9) / 1e9, 1),
-    }
-    print(
-        f"# mfu: solve {out['solve_gflops']} Gflop in {t_solve:.2f}s = {out['solve_gflops_per_s']} Gflop/s = "
-        f"{100 * out['mfu_vs_f32']:.1f}% of the H100's f32 peak ({F32_PEAK / 1e12:.0f} TFLOP/s outside the tensor "
-        f"cores; {100 * out['mfu_vs_f64']:.1f}% of its f64 peak); ranges {out['ranges_gflops_per_s']} Gflop/s",
-        file=file,
-    )
-    return out
 
 
 def _bound(f32: float, f64: float, nbytes: float) -> dict:

@@ -28,7 +28,7 @@ from slam_decomposition_torch.ops import chain_kernels as ck
 from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
-from slam_decomposition_torch.tools.inputs import adam_ulp_spread
+from slam_decomposition_torch.tools.inputs import adam_ulp_spread, fresh_iterations
 from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 KS = list(range(1, 13))  # every depth the kernels are instantiated for
@@ -75,7 +75,7 @@ def lanes(tmp_path_factory):
     for name in ("adam_host", "adam_host_generic"):
         getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P, P]
     for name in ("lm_host", "polish_host", "lm_host_generic", "polish_host_generic"):
-        getattr(lib, name).argtypes = [P, P, P, I, I, I, P, P]
+        getattr(lib, name).argtypes = [P, P, P, I, I, I, P, P, P]  # the last: the count of J builds (may be null)
     for name in ("adam_host", "lm_host", "polish_host", "adam_host_generic", "lm_host_generic", "polish_host_generic"):
         getattr(lib, name).restype = None
     lib.generic_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
@@ -108,17 +108,18 @@ def _adam(lib, x0, T32, g32, sched, k, with_cost=False, generic=False):
     return (out, cost) if with_cost else out
 
 
-def _lm(lib, x, T32, g32, iters, k, generic=False):
+def _lm(lib, x, T32, g32, iters, k, generic=False, rebuilds=None):
     xl, f = torch.empty_like(x), torch.empty(x.shape[0], dtype=torch.float32)
-    (lib.lm_host_generic if generic else lib.lm_host)(_p(x), _p(T32), _p(g32), iters, k, x.shape[0], _p(xl), _p(f))
+    (lib.lm_host_generic if generic else lib.lm_host)(_p(x), _p(T32), _p(g32), iters, k, x.shape[0], _p(xl), _p(f),
+                                                       None if rebuilds is None else _p(rebuilds))
     return xl, f
 
 
-def _polish(lib, x64, T, g64, iters, k, generic=False):
+def _polish(lib, x64, T, g64, iters, k, generic=False, rebuilds=None):
     xp = torch.empty_like(x64)
     f = torch.empty(x64.shape[0], dtype=torch.float64)
     (lib.polish_host_generic if generic else lib.polish_host)(_p(x64), _p(T), _p(g64), iters, k, x64.shape[0],
-                                                               _p(xp), _p(f))
+                                                               _p(xp), _p(f), None if rebuilds is None else _p(rebuilds))
     return xp, f
 
 
@@ -139,7 +140,7 @@ def test_lm_lane_matches_plain(lanes, k, L):
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
     xl = torch.empty_like(xa)
     f = torch.empty(L, dtype=torch.float32)
-    lanes.lm_host(_p(xa), _p(T32), _p(g32), 8, k, L, _p(xl), _p(f))
+    lanes.lm_host(_p(xa), _p(T32), _p(g32), 8, k, L, _p(xl), _p(f), None)
     _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
     # accept/reject at the f32 floor may differ: rtol 1e-3 / atol 1e-5 on
     # >= 99% of lanes (all of them here)
@@ -186,7 +187,7 @@ def test_polish_team_is_the_lm_team_with_a_double_residual(lanes, k):
     _, g32, _, T32, x0 = _inputs(k, 13, L)
     xa = _adam(lanes, x0, T32, g32, ck.adam_schedule(100), k)
     xl, f32 = torch.empty_like(xa), torch.empty(L, dtype=torch.float32)
-    lanes.lm_host(_p(xa), _p(T32), _p(g32), 2, k, L, _p(xl), _p(f32))
+    lanes.lm_host(_p(xa), _p(T32), _p(g32), 2, k, L, _p(xl), _p(f32), None)
     _, f64 = _polish(lanes, xa.double(), T32.to(torch.complex128), g32.to(torch.complex128), 2, k)
     assert np.isclose(f32.numpy(), f64.numpy(), rtol=1e-3, atol=1e-5).mean() >= 0.99
 
@@ -209,6 +210,22 @@ def test_polish_lane_residual_is_f64(lanes, k):
     r2 = ck.phase_residual(ck.reduce_angles(xp), T2, g64)
     np.testing.assert_allclose(f2[ok].numpy(), (r2 * r2).sum(-1)[ok].numpy(), rtol=1e-6)
     assert (f2[ok] > 100 * f[ok]).all() and (f2[ok] < 1e-15).all()
+
+
+@pytest.mark.parametrize("k", [2, 3, 13])
+def test_lane_rebuild_counts_follow_the_accepted_steps(lanes, k):
+    """The LM and polish programs count their J builds (the counter the
+    kernels take): 1 + the accepted steps before the last iteration, summed
+    over the lanes, read from runs at 0..iters-1 iterations
+    (tools/inputs.fresh_iterations' method); K = 13 is the generic program."""
+    generic, L = k > 12, 9  # 9: a partial last block
+    g64, g32, T, T32, x0 = _inputs(k, 17, L)
+    for run, x, t, g, iters in ((_lm, x0, T32, g32, 8), (_polish, x0.double(), T, g64, 6)):
+        acc = torch.zeros(1, dtype=torch.int64)
+        counted = run(lanes, x, t, g, iters, k, generic, acc)
+        fresh = fresh_iterations(lambda *a: run(lanes, *a, k, generic), x, t, g, iters)
+        assert acc.item() == round(fresh * L) and acc.item() >= L
+        assert all(torch.equal(a, b) for a, b in zip(counted, run(lanes, x, t, g, iters, k, generic)))
 
 
 # ---------------------------------------------------------------- depth-generic programs

@@ -170,12 +170,12 @@ def test_generic_program_matches_the_k12_instance(dev):
     xa = ck.adam_chain(x0, T32, g32, sched)
     xl, fl = ck.lm_chain(xa, T32, g32, 8)
     xo, fo = torch.empty_like(xa), torch.empty(L, device=dev)
-    ck._launch("slam_lm_chain_generic", p(xa), p(T32), p(g32), i(8), i(k), i(L), p(xo), p(fo))
+    ck._launch("slam_lm_chain_generic", p(xa), p(T32), p(g32), i(8), i(k), i(L), p(xo), p(fo), None)
     assert torch.isclose(fo, fl, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
     x64 = xl.double().contiguous()
     _, fp = ck.polish_chain(x64, T, g64, 6)
     xo, fo = torch.empty_like(x64), torch.empty(L, device=dev, dtype=torch.float64)
-    ck._launch("slam_polish_chain_generic", p(x64), p(T), p(g64), i(6), i(k), i(L), p(xo), p(fo))
+    ck._launch("slam_polish_chain_generic", p(x64), p(T), p(g64), i(6), i(k), i(L), p(xo), p(fo), None)
     assert torch.equal(certificate(fo) <= 1e-10, certificate(fp) <= 1e-10)
 
 

@@ -1,13 +1,12 @@
-"""The port's utilities (utils/profiling.py, utils/visualize.py,
-utils/mfu.mfu_report) on the CPU, and its examples (examples/torch_*.py)
-each run once in a subprocess with ``--device cpu``.
+"""The port's utilities (utils/profiling.device_trace, utils/visualize.py)
+on the CPU, and its examples (examples/torch_*.py) each run once in a
+subprocess with ``--device cpu``.
 
 The plots are checked by their data on the Agg backend, not their pixels:
 the Weyl coordinates against the JAX package's, the coverage hulls'
 vertices against the JAX coverage set's."""
 
 import json
-import logging
 import os
 import pathlib
 import subprocess
@@ -24,8 +23,8 @@ from slam_decomposition_tpu.ops import weyl as jweyl
 
 from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage
 from slam_decomposition_torch.models import gates
-from slam_decomposition_torch.utils import mfu, visualize as vz
-from slam_decomposition_torch.utils.profiling import PhaseTimer, device_trace, timed
+from slam_decomposition_torch.utils import visualize as vz
+from slam_decomposition_torch.utils.profiling import device_trace
 from torch_threads import one_torch_thread  # noqa: F401  (torch on one intra-op thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -39,44 +38,12 @@ def _close_figures():
     plt.close("all")
 
 
-def test_phase_timer_accumulates_and_logs(caplog):
-    pt = PhaseTimer("haar")
-    for _ in range(3):
-        with pt.phase("ranges"):
-            pass
-    with pt.phase("solve"):
-        pass
-    assert pt.counts == {"ranges": 3, "solve": 1}
-    assert set(pt.summary()) == {"ranges", "solve"} and all(v >= 0 for v in pt.summary().values())
-    with caplog.at_level(logging.INFO, logger="slam_torch.profile"):
-        pt.log()
-        with timed("step"):
-            pass
-    assert caplog.records[0].getMessage().startswith("TIMING [haar]: ranges: ")
-    assert ", solve: " in caplog.records[0].getMessage()
-    assert caplog.records[1].getMessage().startswith("step: ")
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with device_trace(tmp_path) as path:
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert path.parent == tmp_path and path.exists()
     events = json.loads(path.read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
-
-
-def test_mfu_report_on_fixed_inputs(capsys):
-    ks = np.array([2] * 3 + [3])
-    out = mfu.mfu_report(B=4, dt=0.5, t_ranges=0.1, ks=ks, restarts=4, file=sys.stdout)
-    total = 3 * mfu.solve_flops_per_target(2, 4) + mfu.solve_flops_per_target(3, 4)
-    assert out == {
-        "solve_gflops": round(total / 1e9, 1),
-        "solve_gflops_per_s": round(total / 0.4 / 1e9, 1),
-        "mfu_vs_f32": round(total / 0.4 / mfu.F32_PEAK, 4),
-        "mfu_vs_f64": round(total / 0.4 / mfu.F64_PEAK, 4),
-        "ranges_gflops_per_s": round(25e3 * 4 / 0.1 / 1e9, 1),
-    }
-    assert capsys.readouterr().out.startswith("# mfu: solve ")
 
 
 def test_plot_matrix_writes_each_phase():
