@@ -6,13 +6,14 @@ Phases, one line each (more for the build report):
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: compile the CUDA kernels from slam_decomposition_torch/csrc with
      nvcc, print the build seconds, ptxas registers / spills and the
-     resident blocks and warps per SM (CUDA occupancy calculator) of each
-     kernel instance (Adam with and without the cost, the LM and the polish
-     at k = 1..12: 48 instances; and the depth-generic programs, in which k
-     is a runtime argument: Adam's two a layer bucket (ADAM_GEN_BUCKETS,
-     with and without the cost), the LM's and the polish's one a slot
-     bucket (LM_GEN_BUCKETS) and their gate-list kernels; at k = 12 and at
-     depth_deep()'s deep depths to 79, with their lanes a block) with its
+     resident blocks and warps per SM (CUDA occupancy calculator) of the
+     eigenphase kernel and of each chain kernel instance (Adam with and
+     without the cost, the LM and the polish at k = 1..12: 48 instances;
+     and the depth-generic programs, in which k is a runtime argument:
+     Adam's two a layer bucket (ADAM_GEN_BUCKETS, with and without the
+     cost), the LM's and the polish's one a slot bucket (LM_GEN_BUCKETS)
+     and their gate-list kernels; at k = 12 and at depth_deep()'s deep
+     depths to 79, with their lanes a block) with its
      shared memory a block, static or dynamic; every instance must build
      without spills and with no stack frame beyond the math library's sincos
      scratch, and keep 12 warps per SM resident, or every block its shared
@@ -29,11 +30,18 @@ Phases, one line each (more for the build report):
      then, at k = 12 on 500 targets x 5 restarts, the depth-generic
      programs (their C entries, which the wrappers take from k = 13)
      against the k = 12 instances, within the same limits, both timed;
+     then the magic-basis eigenphase kernel (csrc/weyl_coords.cu) on
+     haar_sample(100000, seed=456): its phases mod 2 pi and its monodromy
+     representatives within 1e-12 of the plain chain's on the CPU, the
+     sqiSwap set's k of every target the CPU's (histogram {2: 79029,
+     3: 20971}) at one launch a KS_CHUNK, timed against its bound and the
+     plain chain on the card;
   4. main path: slam_decomposition_torch.pipeline.decompose_haar at
      B=100000, chunk=10000, restarts=4, thresh=1e-10, seed=456, which must
      give the k histogram {2: 79029, 3: 20971}, certify every target at
-     square cost <= 1e-10, and launch every kernel once per chunk it
-     solves (warm-up, k buckets and rescue rounds);
+     square cost <= 1e-10, launch every chain kernel once per chunk it
+     solves (warm-up, k buckets and rescue rounds) and the eigenphase
+     kernel once per KS_CHUNK of its two k assignments (warm-up, batch);
   5. transpile path, counted like the main path:
      (a) QFT-64 (2048 blocks): the sqiSwap count histogram, then
      slam_decomposition_torch.transpile.passes.pass_manager_basic(qft(64),
@@ -246,6 +254,8 @@ SOURCES = {
 }
 # the depth-generic programs (K = 13..79), which the entry points above hand deep chains to
 GENERIC_SOURCES = {name: f"slam_decomposition_torch/csrc/{name}_generic.cu" for name in REPLACES}
+# every kernel wrapper whose launches the run sums (ops/_build.WRAPPERS)
+COUNTED = (*REPLACES, "gamma_eigenphases")
 # the generic LM's and polish's slot buckets (csrc/lm_generic.cuh lm_gen_bucket): one kernel each
 LM_GEN_BUCKETS = (3, 4, 8, 16)
 # the generic Adam's layer buckets (csrc/adam_generic.cuh adam_gen_bucket), each
@@ -507,7 +517,9 @@ def phase_build():
         m = re.search(r"([a-z_]+_kernel)(?:I([fd])?(?:Li(\d+)E)?(?:Lb(\d)E)?E)?", entry)
         # lm_gen_kernel<R, SB>: the generic LM (f) or polish (d) program of slot bucket SB
         typ = {"f": "float, ", "d": "double, "}.get(m.group(2) or "", "") if m else ""
-        name = f"{m.group(1)}<{typ}{m.group(3) or 'k'}{', cost' if m.group(4) == '1' else ''}>" if m else entry
+        templated = m is not None and entry[m.end(1):m.end(1) + 1] == "I"
+        name = (f"{m.group(1)}<{typ}{m.group(3) or 'k'}{', cost' if m.group(4) == '1' else ''}>" if templated
+                else m.group(1) if m else entry)
         print(f"[build] ptxas {name}: {r.get('registers')} registers, "
               f"{r.get('stack_frame')} B stack, {r.get('spill_stores')} B spill stores, "
               f"{r.get('spill_loads')} B spill loads")
@@ -516,10 +528,17 @@ def phase_build():
     # Adam with and without the cost, the LM and the polish, each at every k
     # of an instance; the generic Adam with and without the cost, the
     # generic LM and polish, once a slot bucket, and the LM's and polish's
-    # two gate-list kernels
-    want = 4 * len(INSTANCE_KS) + 2 * len(ADAM_GEN_BUCKETS) + 2 * len(LM_GEN_BUCKETS) + 2
+    # two gate-list kernels; and the eigenphase kernel
+    want = 4 * len(INSTANCE_KS) + 2 * len(ADAM_GEN_BUCKETS) + 2 * len(LM_GEN_BUCKETS) + 2 + 1
     check(len(regs) == want, f"expected {want} kernel instances in the ptxas report, got {len(regs)}")
-    _build.load()
+    lib = _build.load()
+    blocks, threads, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.slam_gamma_eigenphases_occupancy(*map(ctypes.byref, (blocks, threads, smem)))
+    check(err == 0, f"slam_gamma_eigenphases_occupancy failed: {_build.error_string(err)} ({err})")
+    print(f"[build] occupancy gamma_eigenphases: {blocks.value} resident blocks x {threads.value} threads = "
+          f"{blocks.value * threads.value // 32} warps per SM; {smem.value} B of static shared memory a block")
+    # its launch bounds ask for 4 blocks of 128 threads (128 registers a thread)
+    check(blocks.value >= 4, f"gamma_eigenphases keeps {blocks.value} blocks per SM resident, needs 4")
     generic_ks = (12, *(k for k, path in depth_deep() if path == "kernels" and k > max(INSTANCE_KS)))
     for name in REPLACES:
         for generic, ks in ((False, INSTANCE_KS), (True, generic_ks)):
@@ -671,29 +690,30 @@ def phase_generic_vs_instance(stats, k=12, targets=DEPTH_DEEP_B, restarts=API_RE
     entries: the wrappers take them from k = 13) against the depth-k
     instances on the same inputs, within phase 3's limits, both timed (one
     launch after a warm one each). Fills stats[kernel]["generic_k<k>"]."""
+    from slam_decomposition_torch.ops import _build
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.opt.gauss_newton import certificate
     from slam_decomposition_torch.tools.inputs import best_restart, kernel_inputs
 
     dev = torch.device("cuda")
     g64, g32, T, lanes_t, x0, sched = kernel_inputs(k, targets, restarts, dev).values()
-    L, p, i = x0.shape[0], ck._p, ctypes.c_int
+    L, p, i = x0.shape[0], _build.ptr, ctypes.c_int
 
     def adam_generic(s):
         out = torch.empty_like(x0)
-        ck._launch("slam_adam_chain_generic", p(x0), p(lanes_t), p(g32), p(s), i(s.shape[0]), i(k), i(L), p(out), None)
+        _build.launch(None, "slam_adam_chain_generic", p(x0), p(lanes_t), p(g32), p(s), i(s.shape[0]), i(k), i(L), p(out), None)
         return out
 
     def lm_generic(x):
         xo, fo = torch.empty_like(x), torch.empty(L, device=dev)
-        ck._launch("slam_lm_chain_generic", p(x), p(lanes_t), p(g32), i(ck.LM32_ITERS), i(k), i(L), p(xo), p(fo),
-                   None)
+        _build.launch(None, "slam_lm_chain_generic", p(x), p(lanes_t), p(g32), i(ck.LM32_ITERS), i(k), i(L), p(xo),
+                      p(fo), None)
         return xo, fo
 
     def polish_generic(x):
         xo, fo = torch.empty_like(x), torch.empty(x.shape[0], device=dev, dtype=torch.float64)
-        ck._launch("slam_polish_chain_generic", p(x), p(T), p(g64), i(ck.LM_ITERS), i(k), i(x.shape[0]), p(xo), p(fo),
-                   None)
+        _build.launch(None, "slam_polish_chain_generic", p(x), p(T), p(g64), i(ck.LM_ITERS), i(k), i(x.shape[0]),
+                      p(xo), p(fo), None)
         return xo, fo
 
     s25 = sched[:ADAM_PARITY_ITERS].contiguous()
@@ -749,7 +769,45 @@ def polish_parity_on_init(label, U, ks, dev):
     return worst
 
 
+def phase_weyl(stats):
+    """The magic-basis eigenphase kernel on the main path's targets against
+    the plain chain on the CPU; fills stats["gamma_eigenphases"]."""
+    from slam_decomposition_torch.coverage.coverage import KS_CHUNK, load_coverage, monodromy_ks_batch
+    from slam_decomposition_torch.models import gates
+    from slam_decomposition_torch.ops import _build, weyl
+    from slam_decomposition_torch.opt.samplers import haar_sample
+    from slam_decomposition_torch.utils import mfu
+
+    def launches():
+        return _build.launch_counts()["gamma_eigenphases"]
+
+    U = torch.as_tensor(haar_sample(B, seed=SEED))
+    T = U.cuda()
+    before = launches()
+    ph, ms = timed_ms(lambda: weyl.gamma_eigenphases(T))
+    check(launches() == before + 2, "gamma_eigenphases did not launch its kernel once a call")
+    _, plain_ms = timed_ms(lambda: weyl.gamma_eigenphases_ref(T))
+    want = weyl.gamma_eigenphases_ref(U)
+    err = (torch.remainder(ph.cpu() - want + math.pi, 2 * math.pi) - math.pi).abs().max().item()
+    rep_err = (weyl.monodromy_coords(T).cpu() - weyl.monodromy_coords(U)).abs().max().item()
+    cov = load_coverage(gates.cg_sqiswap())
+    before = launches()
+    ks = monodromy_ks_batch(cov, T)
+    chunks = launches() - before
+    same = bool((ks == monodromy_ks_batch(cov, U, device="cpu")).all())
+    hist = {int(k): int(n) for k, n in zip(*np.unique(ks, return_counts=True))}
+    bound = bound_line("gamma_eigenphases", f"{B} targets", mfu.gamma_eigenphases_launch(B), ms)
+    print(f"[weyl] phases within {err:.3e} (mod 2 pi), representatives within {rep_err:.3e} of the CPU's plain chain; "
+          f"ks equal to the CPU's: {same}, histogram {hist}, {chunks} launches; plain chain on the card {plain_ms:.3f} ms")
+    check(err <= 1e-12 and rep_err <= 1e-12, f"eigenphases {err:.3e} / representatives {rep_err:.3e} off the plain chain")
+    check(same and hist == WANT_HIST, f"ks differ from the CPU's or histogram {hist} != {WANT_HIST}")
+    check(chunks == math.ceil(B / KS_CHUNK), f"{chunks} eigenphase launches for {B} targets")
+    stats["gamma_eigenphases"] = {"max_abs_err": max(err, rep_err), "ms": ms, "plain_ms": plain_ms, "bound": bound}
+
+
 def phase_main_path(card):
+    from slam_decomposition_torch.coverage.coverage import KS_CHUNK
+    from slam_decomposition_torch.ops import _build
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.pipeline import decompose_haar
 
@@ -757,15 +815,18 @@ def phase_main_path(card):
     t0 = time.perf_counter()
     r = decompose_haar(B=B, chunk=CHUNK, restarts=RESTARTS, thresh=THRESH, seed=SEED, device="cuda")
     wall = time.perf_counter() - t0
-    counts = ck.launch_counts()
+    counts = _build.launch_counts()
     hist = r.k_histogram()
     worst = float(np.max(r.losses))
-    # one launch of each kernel per solved chunk: one warm-up chunk per k,
-    # the chunks of each k bucket, and the chunks of each rescue round
+    # one launch of each chain kernel per solved chunk: one warm-up chunk per
+    # k, the chunks of each k bucket, and the chunks of each rescue round;
+    # one eigenphase launch per KS_CHUNK of the warm-up's and the batch's k
+    # assignments (the sqiSwap coverage set comes from its cache)
     chunks = sum(math.ceil(n / CHUNK) for n in [*hist.values(), *r.rescued])
     want = len(WANT_HIST) + chunks
+    want_eig = math.ceil(CHUNK / KS_CHUNK) + math.ceil(B / KS_CHUNK)
     print(f"[main] k histogram {hist}; certified {r.n_certified}/{B} at <= {THRESH:g}; worst loss {worst:.3e}; "
-          f"rescued {r.rescued}; launches {counts} (expected {want} each)")
+          f"rescued {r.rescued}; launches {counts} (expected {want} of each chain kernel, {want_eig} eigenphase)")
     t = r.times
     print(f"[main] {card}: ranges {t['ranges']:.3f} s, solve {t['solve']:.3f} s, rescue {t['rescue']:.3f} s, "
           f"total {t['total']:.3f} s -> {r.n_certified / t['total']:.1f} targets/s "
@@ -774,7 +835,8 @@ def phase_main_path(card):
     check(hist == WANT_HIST, f"k histogram {hist} != {WANT_HIST}")
     check(r.n_certified == B, f"certified {r.n_certified} of {B}")
     check(worst <= THRESH, f"worst loss {worst} > {THRESH}")
-    check(all(v == want for v in counts.values()), f"launches {counts}, expected {want} of each kernel")
+    check(all(counts[name] == want for name in REPLACES), f"launches {counts}, expected {want} of each chain kernel")
+    check(counts["gamma_eigenphases"] == want_eig, f"{counts['gamma_eigenphases']} eigenphase launches, expected {want_eig}")
     return counts, r
 
 
@@ -814,6 +876,7 @@ def _hist(ns):
 
 
 def phase_transpile(card, main_rate):
+    from slam_decomposition_torch.ops import _build
     from slam_decomposition_torch.ops import chain_kernels as ck
     from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
     from slam_decomposition_torch.transpile import library
@@ -822,7 +885,7 @@ def phase_transpile(card, main_rate):
     from slam_decomposition_torch.transpile.passes import pass_manager_basic
 
     dev = torch.device("cuda")
-    total = {name: 0 for name in REPLACES}
+    total = {name: 0 for name in COUNTED}
 
     def counted(fn):
         """fn() with the launch counts set to 0 before and read after."""
@@ -831,10 +894,10 @@ def phase_transpile(card, main_rate):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = ck.launch_counts()
+        got = _build.launch_counts()
         for name in total:
             total[name] += got[name]
-        return out, wall, got
+        return out, wall, ck.launch_counts()
 
     def pass_twice(batched, stats=None):
         run = lambda: pass_manager_basic(circ, "sqiswap", 0.25, batched=batched, device=dev, stats=stats)  # noqa: E731
@@ -906,9 +969,10 @@ class Counted:
     the kernels' launches over its runs."""
 
     def __init__(self):
-        self.total = {name: 0 for name in REPLACES}
+        self.total = {name: 0 for name in COUNTED}
 
     def __call__(self, fn):
+        from slam_decomposition_torch.ops import _build
         from slam_decomposition_torch.ops import chain_kernels as ck
         from slam_decomposition_torch.opt.gauss_newton import GeneralSolver
 
@@ -919,10 +983,10 @@ class Counted:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = ck.launch_counts()
+        got = _build.launch_counts()
         for name in self.total:
             self.total[name] += got[name]
-        return out, wall, got, GeneralSolver.calls, torch.cuda.max_memory_allocated() / 2**20
+        return out, wall, ck.launch_counts(), GeneralSolver.calls, torch.cuda.max_memory_allocated() / 2**20
 
 
 def _sqiswap_basis():
@@ -1856,7 +1920,7 @@ def phase_mesh(card, counted, main, stats):
         check(all(v > 0 for v in rk["launches"].values()), f"rank {rk['rank']} launched {rk['launches']}")
         check(rk["production_shards"]["lanes"] == lanes_want, f"rank {rk['rank']} lanes {rk['production_shards']['lanes']}")
         check(rk["certified"] >= 0.5 and rk["agreement"] >= 0.999, f"rank {rk['rank']}: {rk}")
-        for name in counted.total:
+        for name in REPLACES:  # a rank reports its chain kernels' launches
             counted.total[name] += rk["launches"][name]
     print(f"[mesh] (b) {card}: dryrun_multichip({MESH_RANKS}) {t_dry:.1f} s, rank start-up included")
 
@@ -2013,6 +2077,7 @@ def main() -> int:
         stats = {name: {"max_abs_err": 0.0} for name in REPLACES}
         timed("parity", phase_parity, stats)
         timed("generic", phase_generic_vs_instance, stats)
+        timed("weyl", phase_weyl, stats)
         counts, main = timed("main", phase_main_path, card)
         t_counts, t_polish_err = timed("transpile", phase_transpile, card, main.n_certified / main.times["total"])
         stats["polish_chain"]["max_abs_err"] = max(stats["polish_chain"]["max_abs_err"], t_polish_err)
@@ -2074,6 +2139,14 @@ def main() -> int:
         }
         for name in REPLACES
     ]
+    g = stats["gamma_eigenphases"]
+    kernels.append({
+        "name": "gamma_eigenphases", "route": "cuda", "source": "slam_decomposition_torch/csrc/weyl_coords.cu",
+        "replaces": None,  # the JAX package's ops/eig.joint_diag has no Pallas kernel
+        "launches": counts["gamma_eigenphases"], "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound"]["bound_ms"], "bound_by": g["bound"]["bound_by"],
+        "library_ms": None, "flops": g["bound"]["flops"], "lanes": B,
+    })
     print(f"[result] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,9 @@ from slam_decomposition_torch.utils import profiling
 ROW_TOL = 1e-8  # membership tolerance, scaled per row by max(|row|, 1)
 IDENTITY_TOL = 1e-9
 # targets per batch: the main path's 100k fit in one (~50 MB of f64
-# membership values for the sqiSwap set), and every batch costs the Jacobi
-# sweeps' ~4000 small launches again
+# membership values for the sqiSwap set), and every batch costs its ~40
+# small launches of the alcove reduction and membership test again (on the
+# card the eigenphases are one kernel launch, ops/weyl.gamma_eigenphases)
 KS_CHUNK = 1 << 17
 MAX_LAYERS = 128  # the build's runaway guard when no cap is given
 REP_DENOMINATOR = 10_000  # a gate's coordinates as Fractions: limit_denominator

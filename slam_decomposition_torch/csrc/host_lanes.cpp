@@ -1,5 +1,6 @@
 // Host build of the three kernels' lane programs, with the same C interface
-// as the CUDA launchers minus the stream: the depth-K instances (K =
+// as the CUDA launchers minus the stream (and of the eigenphase kernel's
+// body, weyl_coords.cuh, one target at a time): the depth-K instances (K =
 // 1..12) and the depth-generic programs (any K to 79, K a runtime
 // argument). The teams (Adam; the LM program with a float residual for the
 // ranking pass and a double one for the polish) run their steps as loops
@@ -13,6 +14,7 @@
 // Build: g++ -O1 -std=c++17 -shared -fPIC -o liblanes.so host_lanes.cpp
 #include "adam_generic.cuh"
 #include "lm_generic.cuh"
+#include "weyl_coords.cuh"
 #include <cmath>
 #include <vector>
 using namespace slam;
@@ -107,6 +109,14 @@ void lm_host_generic(const float* x0, const float* tgt, const float* gates, int 
 }
 void polish_host_generic(const double* x0, const double* tgt, const double* gates, int iters, int k, int L, double* xout, double* fout, unsigned long long* rebuilds) {
   lm_gen<double>(x0, tgt, gates, iters, k, L, xout, fout, rebuilds);
+}
+// U (n, 4, 4) complex128 -> phases (n, 4) f64, as the kernel's threads
+void gamma_eigenphases_host(const double* U, double* phases, int n) {
+  for (int i = 0; i < n; ++i) {
+    slam_weyl::Z u[16];
+    for (int j = 0; j < 16; ++j) u[j] = cmk(U[32 * i + 2 * j], U[32 * i + 2 * j + 1]);
+    slam_weyl::gamma_eigenphases(u, phases + 4 * i);
+  }
 }
 // the generic blocks at depth k: kernel 0 Adam, 1 LM, 2 polish -> lanes a
 // block, bytes of one lane's workspace, bytes of gate lists in the block

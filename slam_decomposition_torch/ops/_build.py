@@ -6,7 +6,8 @@ takes seconds), named by a hash of the sources and flags, under
 ``build/slam_torch_kernels/`` at the root of the checkout. The first call
 in a process builds it when it is missing;
 later calls reuse it. Pointers and the stream are passed as
-``ctypes.c_void_p`` and ints as ``ctypes.c_int``.
+``ctypes.c_void_p`` and ints as ``ctypes.c_int``. ``launch`` calls an entry
+on the current stream and counts the launches of each kernel wrapper.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ SIGNATURES = {
     "slam_adam_chain_generic": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "slam_lm_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "slam_polish_chain_generic": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "slam_gamma_eigenphases": [_P, _P, _I, _P],  # U, phases, n (weyl_coords.cu)
 }
 MAX_THREADS_PER_SM = 2048  # sm_90
 # kernel -> its occupancy query (k, *resident blocks per SM, *threads per block,
@@ -53,6 +55,10 @@ OCCUPANCY = {
 }
 OCCUPANCY_GENERIC = {name: f"slam_{name}_generic_occupancy" for name in OCCUPANCY}
 TEAM = {"adam_chain": 4, "lm_chain": 32, "polish_chain": 32}  # threads a lane
+# the wrappers that launch kernels (ops/chain_kernels, ops/weyl), whose
+# launches ``launch`` counts in one table
+WRAPPERS = (*OCCUPANCY, "gamma_eigenphases")
+_launches = dict.fromkeys(WRAPPERS, 0)
 
 
 def _sources():
@@ -129,6 +135,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_I, *[ctypes.POINTER(_I)] * 4]
         fn.restype = ctypes.c_int
+    lib.slam_gamma_eigenphases_occupancy.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.slam_gamma_eigenphases_occupancy.restype = ctypes.c_int
     lib.slam_smem_per_sm.argtypes = [ctypes.POINTER(_I)] * 2
     lib.slam_smem_per_sm.restype = ctypes.c_int
     lib.slam_error_string.argtypes = [ctypes.c_int]
@@ -138,6 +146,35 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().slam_error_string(err).decode()
+
+
+def launch(wrapper, fn_name: str, *args) -> None:
+    """Calls the C entry ``fn_name(*args, stream)`` on the current CUDA
+    stream, raises on the error it returns, and counts the launch under
+    ``wrapper`` (one of ``WRAPPERS``; None counts it nowhere)."""
+    import torch
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(load(), fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: {error_string(err)} ({err})")
+    if wrapper is not None:
+        _launches[wrapper] += 1
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's data pointer as a C argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch_counts() -> dict:
+    """{wrapper: its launches since the last ``reset_launch_counts``}."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
 
 
 def occupancy(kernel: str, k: int, generic: bool = False) -> dict:

@@ -15,8 +15,10 @@ All three work per lane on the chain U(x) = L_k G_{k-1} ... L_1 G_0 L_0
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (csrc/*.cu) or raises; there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``;
-``lane_counts()`` gives the lanes of each wrapper's calls, launched or plain.
+fallback. ``launch_counts()`` gives each wrapper's launches (counted in
+``_build``'s one table of kernel launches, which ``reset_launch_counts()``
+sets to 0) and ``lane_counts()`` the lanes of each wrapper's calls,
+launched or plain.
 While the program's tracing is on (``utils.profiling``), each call also
 adds its launch and lanes to the program's table under (wrapper, k,
 iterations), and the LM and the polish count the iterations that build J, A
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from slam_decomposition_torch.models.templates import chain_unitary
+from slam_decomposition_torch.ops import _build
 from slam_decomposition_torch.utils import profiling
 
 # chain depths with a CUDA kernel (csrc/chain_common.cuh kMaxK): 1..12 as
@@ -279,18 +282,7 @@ def _kernel_target(x, k):
     return True
 
 
-def _launch(fn_name, *args):
-    from slam_decomposition_torch.ops import _build
-
-    lib = _build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: {_build.error_string(err)} ({err})")
-
-
-def _p(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+_p = _build.ptr  # short for the launch lines
 
 
 def _p_or_null(t):
@@ -311,12 +303,11 @@ def adam_chain(x0, tgt, gates, sched, with_cost: bool = False):
         return adam_chain_ref(x0, tgt, gates, sched, with_cost)
     out = torch.empty_like(x0)
     cost = torch.empty(L, dtype=torch.float32, device=x0.device) if with_cost else None
-    _launch(
-        "slam_adam_chain", _p(x0), _p(tgt), _p(gates), _p(sched),
+    _build.launch(
+        "adam_chain", "slam_adam_chain", _p(x0), _p(tgt), _p(gates), _p(sched),
         ctypes.c_int(sched.shape[0]), ctypes.c_int(k), ctypes.c_int(L), _p(out),
         _p(cost) if with_cost else None,
     )
-    adam_chain.launches += 1
     return (out, cost) if with_cost else out
 
 
@@ -330,11 +321,10 @@ def lm_chain(x, tgt, gates, iters: int = LM32_ITERS):
         return lm_chain_ref(x, tgt, gates, iters, rebuilds)
     xo = torch.empty_like(x)
     fo = torch.empty(L, dtype=torch.float32, device=x.device)
-    _launch(
-        "slam_lm_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
+    _build.launch(
+        "lm_chain", "slam_lm_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
         ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo), _p_or_null(rebuilds),
     )
-    lm_chain.launches += 1
     return xo, fo
 
 
@@ -348,11 +338,10 @@ def polish_chain(x, tgt, gates, iters: int = LM_ITERS):
         return polish_chain_ref(x, tgt, gates, iters, rebuilds)
     xo = torch.empty_like(x)
     fo = torch.empty(L, dtype=torch.float64, device=x.device)
-    _launch(
-        "slam_polish_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
+    _build.launch(
+        "polish_chain", "slam_polish_chain", _p(x), _p(tgt), _p(gates), ctypes.c_int(iters),
         ctypes.c_int(k), ctypes.c_int(L), _p(xo), _p(fo), _p_or_null(rebuilds),
     )
-    polish_chain.launches += 1
     return xo, fo
 
 
@@ -363,19 +352,19 @@ _lanes: dict = {w.__name__: [] for w in WRAPPERS}  # the lanes of each call sinc
 
 
 def reset_launch_counts() -> None:
-    """Sets every wrapper's launch count to 0 and forgets its calls' lanes."""
-    for w in WRAPPERS:
-        w.launches = 0
-        _lanes[w.__name__].clear()
+    """Sets every kernel wrapper's launch count to 0 (``_build``'s table:
+    the eigenphases' too) and forgets the chain wrappers' calls' lanes."""
+    _build.reset_launch_counts()
+    for lanes in _lanes.values():
+        lanes.clear()
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """{chain wrapper: its launches since the last reset}."""
+    counts = _build.launch_counts()
+    return {w.__name__: counts[w.__name__] for w in WRAPPERS}
 
 
 def lane_counts() -> dict:
     """{wrapper: [the lanes of each call since the last reset]}."""
     return {name: list(v) for name, v in _lanes.items()}
-
-
-reset_launch_counts()

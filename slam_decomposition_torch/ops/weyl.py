@@ -2,6 +2,11 @@
 ops/weyl.py:46-170, 205-261), all in f64 on native complex128
 tensors (the trace-only invariants in the dtype they are given).
 
+``gamma_eigenphases`` runs a CUDA kernel (csrc/weyl_coords.cu) for a CUDA
+tensor, differentiated through its plain version ``gamma_eigenphases_ref``
+(the chain below), which it runs for a CPU tensor; ``ops._build`` counts
+the kernel's launches under ``gamma_eigenphases``.
+
 Conventions are the JAX package's: magic basis
 B = (1/sqrt2)[[1,0,0,i],[0,i,1,0],[0,i,-1,0],[1,0,0,-i]], m = M^T M with
 M = B^dag U_s B for the SU(4) representative U_s, and the alcove
@@ -12,12 +17,16 @@ because f64 is emulated on the TPU and are not ported.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from slam_decomposition_torch.ops import _build
 from slam_decomposition_torch.ops.eig import joint_diag
+from slam_decomposition_torch.utils import profiling
 
 _SQ2 = 1.0 / np.sqrt(2.0)
 # sign vectors: eigenphase_k of CAN(t) = V_SIGNS[k] . t
@@ -73,14 +82,57 @@ def from_magic(M: torch.Tensor) -> torch.Tensor:
     return B @ (M @ B.conj().transpose(-2, -1))
 
 
-def gamma_eigenphases(U: torch.Tensor) -> torch.Tensor:
-    """Eigenphases (4, unsorted, in (-pi, pi]) of m = M^T M for U in U(4)."""
+def gamma_eigenphases_ref(U: torch.Tensor) -> torch.Tensor:
+    """Eigenphases (4, unsorted, in (-pi, pi]) of m = M^T M for U in U(4):
+    the plain chain, in U's precision."""
     Us, _ = su4_normalize(U)
     M = to_magic(Us)
     m = M.transpose(-2, -1) @ M
     x, y, _ = joint_diag(m.real, m.imag)
     # m is unitary symmetric: eigenvalue_k = x_k + i y_k on the unit circle
     return torch.atan2(y, x)
+
+
+class _KernelPhases(torch.autograd.Function):
+    """The kernel's phases; the gradient is the plain chain's at U."""
+
+    @staticmethod
+    def forward(ctx, U):
+        ctx.save_for_backward(U)
+        n = U.numel() // 16
+        U64 = U.to(torch.complex128).contiguous()
+        out = torch.empty((*U.shape[:-2], 4), dtype=torch.float64, device=U.device)
+        _build.launch("gamma_eigenphases", "slam_gamma_eigenphases", _build.ptr(U64), _build.ptr(out), ctypes.c_int(n))
+        return out if U.dtype == torch.complex128 else out.float()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (U,) = ctx.saved_tensors
+        with torch.enable_grad():
+            Ug = U.detach().requires_grad_(True)
+            (dU,) = torch.autograd.grad(gamma_eigenphases_ref(Ug), Ug, g)
+        return dU
+
+
+def gamma_eigenphases(U: torch.Tensor) -> torch.Tensor:
+    """``gamma_eigenphases_ref`` of (..., 4, 4) complex U -> (..., 4): on
+    the CPU the plain chain; on the card one kernel launch in f64
+    (complex64 input taken up to complex128, the phases returned in f32 as
+    the plain chain's would be), whose gradient autograd takes from the plain
+    chain at U; any other device raises. While tracing is on
+    (``utils.profiling``) the targets count under ``weyl.plain_targets`` or
+    ``weyl.kernel_targets``."""
+    n = U.numel() // 16
+    if U.device.type == "cpu":
+        profiling.count("weyl.plain_targets", n)
+        return gamma_eigenphases_ref(U)
+    if U.device.type != "cuda":
+        raise ValueError(f"no eigenphase kernel for device {U.device}")
+    if U.dtype not in (torch.complex64, torch.complex128) or tuple(U.shape[-2:]) != (4, 4) or n >= 2**31:
+        raise ValueError(f"expected (..., 4, 4) complex unitaries, fewer than 2^31, got {U.dtype} {tuple(U.shape)}")
+    profiling.count("weyl.kernel_targets", n)
+    return _KernelPhases.apply(U)
 
 
 def _sort_desc(a: torch.Tensor) -> torch.Tensor:

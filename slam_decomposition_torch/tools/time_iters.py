@@ -61,11 +61,12 @@ def bound_text(bound: dict, ms: float) -> str:
 def adam_generic(x0, t32, g32, sched):
     """adam_chain's depth-generic program (its C entry, which the wrapper
     takes from k = 13) at any depth."""
-    from slam_decomposition_torch.ops import chain_kernels as ck
+    from slam_decomposition_torch.ops import _build
 
     out = torch.empty_like(x0)
-    ck._launch("slam_adam_chain_generic", ck._p(x0), ck._p(t32), ck._p(g32), ck._p(sched),
-               ctypes.c_int(sched.shape[0]), ctypes.c_int(g32.shape[0]), ctypes.c_int(len(x0)), ck._p(out), None)
+    p = _build.ptr
+    _build.launch(None, "slam_adam_chain_generic", p(x0), p(t32), p(g32), p(sched),
+                  ctypes.c_int(sched.shape[0]), ctypes.c_int(g32.shape[0]), ctypes.c_int(len(x0)), p(out), None)
     return out
 
 

@@ -1,4 +1,5 @@
-"""FLOP model of the three chain kernels, and their bounds on an H100.
+"""FLOP model of the three chain kernels and of the eigenphase kernel, and
+their bounds on an H100.
 
 The per-step counts below are the JAX package's own (its utils/mfu.py),
 copied so that both packages reckon the same work; only the peaks differ.
@@ -118,6 +119,13 @@ def solve_flops_per_target(
     return restarts * per_lane + winner + certify
 
 
+# the magic-basis eigenphases of one target (csrc/weyl_coords.cuh), all
+# f64: det U (6 Laplace terms of 36), the SU(4) scale (38), U_s (16 complex
+# multiplies), 2 M (64 adds), m's upper triangle (10 entries of 30), 12
+# sweeps of 6 pivots (an angle of 40 and two rotations of 33) and 4 atan2
+GAMMA_FLOPS = 6 * 36 + 38 + 16 * 6 + 64 + 10 * 30 + 12 * 6 * (40 + 2 * 33) + 4 * TRANS
+
+
 def _bound(f32: float, f64: float, nbytes: float) -> dict:
     t_ops = f32 / F32_PEAK + f64 / F64_PEAK
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -164,3 +172,9 @@ def polish_launch(k: int, lanes: int, iters: int, fresh: float | None = None) ->
     n = 6 * (k + 1)
     nbytes = lanes * (2 * n + 32 + 1) * 8 + k * 256
     return _bound(lanes * (fresh * rebuild + iters * cg), lanes * (iters + 1) * F, nbytes)
+
+
+def gamma_eigenphases_launch(targets: int) -> dict:
+    """One slam_gamma_eigenphases launch: ``GAMMA_FLOPS`` a target at the
+    f64 rate; reads U (16 complex128) and writes 4 f64 phases a target."""
+    return _bound(0.0, targets * GAMMA_FLOPS, targets * (256 + 32))

@@ -15,6 +15,7 @@ and the device build are covered on the card (test_torch_kernels.py,
 chip_smoke.py)."""
 
 import ctypes
+import math
 import shutil
 import subprocess
 
@@ -22,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from slam_decomposition_torch.coverage.coverage import load_coverage, monodromy_ks_batch, monodromy_ks_of_reps
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, chain_unitary, cycle_gates
 from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.ops import weyl
 from slam_decomposition_torch.ops._build import CSRC
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample
@@ -81,6 +84,8 @@ def lanes(tmp_path_factory):
     lib.generic_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
                                   ctypes.POINTER(I)]
     lib.generic_shape.restype = None
+    lib.gamma_eigenphases_host.argtypes = [P, P, I]
+    lib.gamma_eigenphases_host.restype = None
     return lib
 
 
@@ -391,3 +396,87 @@ def test_generic_program_matches_the_k12_instance(lanes):
     fp = [_polish(lanes, x64, T, g64, 6, k, generic=g)[1] for g in (True, False)]
     assert torch.equal(certificate(fp[0]) <= 1e-10, certificate(fp[1]) <= 1e-10)
     np.testing.assert_allclose(fp[0].numpy(), fp[1].numpy(), rtol=1e-6, atol=1e-28)
+
+
+# ---------------------------------------------------------------- magic-basis eigenphases
+
+
+def _local(n, seed):
+    """n random local gates a (x) b, a and b in SU(2)."""
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((2, n, 2, 2)) + 1j * rng.standard_normal((2, n, 2, 2))
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r, axis1=-2, axis2=-1)
+    q = q * (d / np.abs(d))[..., None, :]
+    q = q / np.sqrt(np.linalg.det(q))[..., None, None]
+    return np.einsum("nij,nkl->nikjl", q[0], q[1]).reshape(n, 4, 4)
+
+
+def _dressed(G, seed, n=64):
+    return _local(n, seed) @ G @ _local(n, seed + 1)
+
+
+# Haar targets, and gates whose spectra of m are degenerate (the identity,
+# CNOT, SWAP, iSwap, B, sqrt(iSwap), the sixteenth-iSwap gate) or whose
+# det lies on the SU(4) branch cut to rounding (CNOT and SWAP, dressed CNOT)
+GAMMA_TARGETS = {
+    "haar": lambda: haar_sample(4096, seed=29),
+    "identity": lambda: np.eye(4),
+    "cnot": lambda: gates.CNOT.to_numpy(),
+    "iswap": lambda: gates.ISWAP.to_numpy(),
+    "swap": lambda: gates.SWAP.to_numpy(),
+    "b": lambda: gates.berkeley().to_numpy(),
+    "sqiswap": lambda: gates.SQISWAP.to_numpy(),
+    "sixteenth_iswap": lambda: gates.conversion_gain_gate(0, 0, 0, math.pi / 32, 1).to_numpy(),
+    "local_identity": lambda: _dressed(np.eye(4), 31),
+    "local_cnot": lambda: _dressed(gates.CNOT.to_numpy(), 33),
+}
+# the benchmark configurations' coverage gates (benchmark/configs/*.json)
+COVERAGE_GATES = {
+    "sqiswap": lambda: gates.cg_sqiswap(),
+    "sixteenth_iswap": lambda: gates.conversion_gain_gate(0, 0, 0, math.pi / 32, 1),
+}
+
+
+def _gamma_targets(name):
+    return torch.as_tensor(np.asarray(GAMMA_TARGETS[name](), dtype=complex).reshape(-1, 4, 4))
+
+
+def _lane_phases(lib, U):
+    out = torch.empty(U.shape[0], 4, dtype=torch.float64)
+    lib.gamma_eigenphases_host(_p(U.contiguous()), _p(out), U.shape[0])
+    return out
+
+
+def _wrap(d):
+    """d mod 2 pi into [-pi, pi)."""
+    return torch.remainder(d + math.pi, 2 * math.pi) - math.pi
+
+
+@pytest.mark.parametrize("name", sorted(GAMMA_TARGETS))
+def test_gamma_eigenphases_lane_matches_plain(lanes, name):
+    """The kernel's body against the plain chain: each phase mod 2 pi within
+    1e-12. Where det U lies on the negative real axis to rounding, the
+    principal branch of det^(-1/4) is decided by the sign of a rounding-level
+    imaginary part, which other sums' orders may flip: the other branch
+    multiplies U_s by i and m by -1, every phase moves by pi and the two
+    monodromy representatives trade places. Only there are all four phases
+    allowed to differ by pi together."""
+    U = _gamma_targets(name)
+    got, want = _lane_phases(lanes, U), weyl.gamma_eigenphases(U)
+    err = _wrap(got - want).abs().amax(-1)
+    det = weyl.det4(U)
+    cut = (det.real < 0) & (det.imag.abs() <= 1e-12)
+    err = torch.where(cut, torch.minimum(err, _wrap(got - want + math.pi).abs().amax(-1)), err)
+    assert err.max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("config", sorted(COVERAGE_GATES))
+def test_gamma_lane_phases_give_the_plain_ks(lanes, config):
+    """Every target of the cases above gets, from the body's phases, the k
+    that monodromy_ks_batch gives with the plain chain, exactly."""
+    cov = load_coverage(COVERAGE_GATES[config]())
+    U = torch.cat([_gamma_targets(name) for name in sorted(GAMMA_TARGETS)])
+    reps = weyl._phases_to_reps(_lane_phases(lanes, U))
+    np.testing.assert_array_equal(monodromy_ks_of_reps(cov, reps.numpy(), device="cpu"),
+                                  monodromy_ks_batch(cov, U, device="cpu"))

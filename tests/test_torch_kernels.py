@@ -1,4 +1,5 @@
-"""The CUDA chain kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (the three chain solvers, the magic-basis eigenphases)
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips without a CUDA device (decided inside the
 test, so every pytest worker collects the same tests). Run on the GPU with
@@ -12,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from slam_decomposition_torch.coverage.coverage import KS_CHUNK, load_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
 from slam_decomposition_torch.models.templates import build_ansatz, chain_unitary, cycle_gates
+from slam_decomposition_torch.ops import _build
 from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.ops import weyl
 from slam_decomposition_torch.opt.gauss_newton import certificate
 from slam_decomposition_torch.opt.samplers import haar_sample, sqiswap_count_batch
 from slam_decomposition_torch.tools.inputs import adam_ulp_spread
@@ -69,9 +73,9 @@ def test_adam_kernel_matches_plain(dev, k, L):
     # rounding: tools/adam_steps.py, PERF.md section 6)
     generic = k > max(ck.INSTANCE_KS)
     sched = ck.adam_schedule(100, device=dev)[:5 if generic else 25].contiguous()
-    before = ck.adam_chain.launches
+    before = ck.launch_counts()["adam_chain"]
     got = ck.adam_chain(x0, T32, g32, sched)
-    assert ck.adam_chain.launches == before + 1
+    assert ck.launch_counts()["adam_chain"] == before + 1
     want = ck.adam_chain_ref(x0, T32, g32, sched)
     d = (got - want).abs().amax(1)
     bound = torch.clamp_min(adam_ulp_spread(x0, T32, g32, sched, want), 5e-5) if generic else 5e-5
@@ -86,9 +90,9 @@ def test_adam_kernel_with_cost(dev, k, L):
     f32 sums of 16 products in another order)."""
     _, g32, _, T32, x0 = _inputs(k, dev, seed=3, L=L)
     sched = ck.adam_schedule(100, device=dev)
-    before = ck.adam_chain.launches
+    before = ck.launch_counts()["adam_chain"]
     x, cost = ck.adam_chain(x0, T32, g32, sched, with_cost=True)
-    assert ck.adam_chain.launches == before + 1
+    assert ck.launch_counts()["adam_chain"] == before + 1
     assert cost.shape == (L,) and cost.dtype == torch.float32
     assert torch.equal(x, ck.adam_chain(x0, T32, g32, sched))
     assert (cost - ck.square_cost(x, T32, g32)).abs().max().item() <= 1e-5
@@ -99,9 +103,9 @@ def test_adam_kernel_with_cost(dev, k, L):
 def test_lm_kernel_matches_plain(dev, k, L):
     _, g32, _, T32, x0 = _inputs(k, dev, seed=1, L=L)
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
-    before = ck.lm_chain.launches
+    before = ck.launch_counts()["lm_chain"]
     _, f = ck.lm_chain(xa, T32, g32, 8)
-    assert ck.lm_chain.launches == before + 1
+    assert ck.launch_counts()["lm_chain"] == before + 1
     _, f_ref = ck.lm_chain_ref(xa, T32, g32, 8)
     assert torch.isclose(f, f_ref, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
 
@@ -113,9 +117,9 @@ def test_polish_kernel_matches_plain(dev, k, L):
     xa = ck.adam_chain(x0, T32, g32, ck.adam_schedule(100, device=dev))
     xl, _ = ck.lm_chain(xa, T32, g32, 8)
     x64 = xl.double().contiguous()
-    before = ck.polish_chain.launches
+    before = ck.launch_counts()["polish_chain"]
     xp, f = ck.polish_chain(x64, T, g64, 6)
-    assert ck.polish_chain.launches == before + 1
+    assert ck.launch_counts()["polish_chain"] == before + 1
     _, f_ref = ck.polish_chain_ref(x64, T, g64, 6)
     c, c_ref = certificate(f), certificate(f_ref)
     assert ((c <= 1e-10) == (c_ref <= 1e-10)).float().mean().item() >= 0.99
@@ -162,20 +166,20 @@ def test_generic_program_matches_the_k12_instance(dev):
     k, L = 12, 509
     g64, g32, T, T32, x0 = _inputs(k, dev, seed=4, L=L)
     sched = ck.adam_schedule(100, device=dev)
-    p, i = ck._p, ctypes.c_int
+    p, i = _build.ptr, ctypes.c_int
     xa = ck.adam_chain(x0, T32, g32, sched[:25].contiguous())
     xg = torch.empty_like(x0)
-    ck._launch("slam_adam_chain_generic", p(x0), p(T32), p(g32), p(sched), i(25), i(k), i(L), p(xg), None)
+    _build.launch(None, "slam_adam_chain_generic", p(x0), p(T32), p(g32), p(sched), i(25), i(k), i(L), p(xg), None)
     assert ((xg - xa).abs().amax(1) <= 5e-5).float().mean().item() >= 0.99
     xa = ck.adam_chain(x0, T32, g32, sched)
     xl, fl = ck.lm_chain(xa, T32, g32, 8)
     xo, fo = torch.empty_like(xa), torch.empty(L, device=dev)
-    ck._launch("slam_lm_chain_generic", p(xa), p(T32), p(g32), i(8), i(k), i(L), p(xo), p(fo), None)
+    _build.launch(None, "slam_lm_chain_generic", p(xa), p(T32), p(g32), i(8), i(k), i(L), p(xo), p(fo), None)
     assert torch.isclose(fo, fl, rtol=1e-3, atol=1e-5).float().mean().item() >= 0.99
     x64 = xl.double().contiguous()
     _, fp = ck.polish_chain(x64, T, g64, 6)
     xo, fo = torch.empty_like(x64), torch.empty(L, device=dev, dtype=torch.float64)
-    ck._launch("slam_polish_chain_generic", p(x64), p(T), p(g64), i(6), i(k), i(L), p(xo), p(fo), None)
+    _build.launch(None, "slam_polish_chain_generic", p(x64), p(T), p(g64), i(6), i(k), i(L), p(xo), p(fo), None)
     assert torch.equal(certificate(fo) <= 1e-10, certificate(fp) <= 1e-10)
 
 
@@ -185,6 +189,60 @@ def test_kernels_refuse_uninstantiated_depth(dev):
     x = torch.zeros((T32.shape[0], 486), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError):
         ck.lm_chain(x, T32, g80, 1)
+
+
+def _haar(dev, n, seed=20):
+    return torch.as_tensor(haar_sample(n, seed=seed)).to(dev)
+
+
+def test_eigenphase_kernel_matches_the_plain_chain(dev):
+    """A batch of 100000 Haar targets: the kernel's monodromy
+    representatives within 1e-12 of the plain chain's on the CPU, and the
+    sqiSwap set's k of every target the CPU's, at one launch a chunk."""
+    T = _haar(dev, 100000)
+    before = _build.launch_counts()["gamma_eigenphases"]
+    reps = weyl.monodromy_coords(T)
+    assert _build.launch_counts()["gamma_eigenphases"] == before + 1 and reps.dtype == torch.float64
+    assert (reps.cpu() - weyl.monodromy_coords(T.cpu())).abs().max().item() <= 1e-12
+    cov = load_coverage(gates.cg_sqiswap())
+    before = _build.launch_counts()["gamma_eigenphases"]
+    ks = monodromy_ks_batch(cov, T)
+    assert _build.launch_counts()["gamma_eigenphases"] == before + math.ceil(T.shape[0] / KS_CHUNK)
+    np.testing.assert_array_equal(ks, monodromy_ks_batch(cov, T.cpu(), device="cpu"))
+
+
+def test_eigenphase_kernel_takes_its_gradient_from_the_plain_chain(dev):
+    """A CUDA tensor that requires grad under grad mode launches the kernel,
+    and autograd takes the gradient from the plain chain at U: the CPU's
+    gradient; under no_grad the same tensor launches the kernel too."""
+    T = _haar(dev, 256)
+    w = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.float64)
+
+    def grad(U):
+        U = U.clone().requires_grad_(True)
+        (weyl.gamma_eigenphases(U) * w.to(U.device)).sum().backward()
+        return U.grad
+
+    before = _build.launch_counts()["gamma_eigenphases"]
+    g = grad(T)
+    assert _build.launch_counts()["gamma_eigenphases"] == before + 1
+    # rounding-level changes of U move this gradient by ~2e-14 (on the CPU)
+    torch.testing.assert_close(g.cpu(), grad(T.cpu()), rtol=0, atol=1e-10)
+    with torch.no_grad():
+        weyl.gamma_eigenphases(T.clone().requires_grad_(True))
+    assert _build.launch_counts()["gamma_eigenphases"] == before + 2
+
+
+def test_eigenphase_kernel_keeps_the_plain_dtype(dev):
+    """complex64 input runs in f64 and returns f32 phases, as the plain
+    chain does; they lie within the plain f32 chain's own rounding (3.9e-7
+    from its f64 result on 256 CPU targets) of the CPU's."""
+    T = _haar(dev, 256).to(torch.complex64)
+    got = weyl.gamma_eigenphases(T)
+    want = weyl.gamma_eigenphases(T.cpu())
+    assert got.dtype == want.dtype == torch.float32
+    d = torch.remainder(got.cpu().double() - want.double() + math.pi, 2 * math.pi) - math.pi
+    assert d.abs().max().item() <= 1e-5
 
 
 def test_batch_synth_on_the_card(dev):
@@ -206,9 +264,9 @@ def test_batch_synth_on_the_card(dev):
     )
     U = np.concatenate([haar_sample(24, seed=11), zoo])
     stats = {}
-    before = ck.polish_chain.launches
+    before = ck.launch_counts()["polish_chain"]
     res = sqiswap_decompose_batch(U, stats=stats, device=dev)
-    assert ck.polish_chain.launches == before + 2
+    assert ck.launch_counts()["polish_chain"] == before + 2
     assert stats["fallback"] == 0, stats
     assert stats["device"] == int((sqiswap_count_batch(U, device=dev) >= 2).sum())
     cpu = sqiswap_decompose_batch(U, device="cpu")

@@ -56,3 +56,9 @@ def test_counts_at_every_kernel_depth():
     # the bound of a launch grows with the depth and is by operations at every one
     bounds = [mfu.lm_launch(k, 40000, 8)["bound_ms"] for k in want]
     assert bounds == sorted(bounds) and all(mfu.polish_launch(k, 10000, 6)["bound_by"] == "operations" for k in want)
+
+
+def test_eigenphase_launch_bound():
+    b = mfu.gamma_eigenphases_launch(100000)
+    assert b["flops"] == 100000 * mfu.GAMMA_FLOPS and b["bytes"] == 100000 * 288
+    assert b["bound_by"] == "operations" and b["bound_ms"] == pytest.approx(1e3 * b["flops"] / mfu.F64_PEAK)

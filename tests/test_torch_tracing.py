@@ -7,7 +7,8 @@ self times and parents; the table resets as documented; under
 benchmark's trace reduction reads the same device ops and ``bench.`` spans
 with them as without; the plain LM and polish count J's builds as
 ``tools/inputs.fresh_iterations`` reads them from the accepted steps; the
-four readers return numbers from a tiny run. Marked ``cuda`` (skipping
+eigenphases count their targets by path; the four readers return numbers
+from a tiny run. Marked ``cuda`` (skipping
 without a card): the kernels' counts against their own accepted steps
 (the plain versions' take other f32 decisions at the rounding floor), x and f
 bit for bit with the counter passed or null, and the
@@ -26,7 +27,9 @@ from benchmark.metrics import flops
 from benchmark.metrics import trace as trace_mod
 from slam_decomposition_torch.coverage.coverage import gate_set_to_coverage, monodromy_ks_batch
 from slam_decomposition_torch.models import gates
+from slam_decomposition_torch.ops import _build
 from slam_decomposition_torch.ops import chain_kernels as ck
+from slam_decomposition_torch.ops import weyl
 from slam_decomposition_torch.opt.samplers import haar_sample
 from slam_decomposition_torch.tools.inputs import fresh_iterations, kernel_inputs
 from slam_decomposition_torch.utils import profiling
@@ -195,6 +198,31 @@ def test_wrappers_count_launches_lanes_and_rebuilds():
     }
 
 
+def test_eigenphase_targets_count_by_path():
+    """On the CPU the eigenphases take the plain chain, with or without
+    autograd: its targets count under ``weyl.plain_targets`` and nothing
+    launches."""
+    cov = gate_set_to_coverage(gates.cg_sqiswap(), device="cpu")
+    T = torch.as_tensor(haar_sample(8, seed=5))
+    before = _build.launch_counts()["gamma_eigenphases"]
+    with profiling.tracing():
+        monodromy_ks_batch(cov, T, "cpu")
+        weyl.gamma_eigenphases(T[:3].clone().requires_grad_(True))
+        got = profiling.table()["counters"]
+    assert got == {"weyl.plain_targets": 11} and _build.launch_counts()["gamma_eigenphases"] == before
+
+
+def test_eigenphases_refuse_devices_without_a_kernel():
+    """A device that is neither the CPU nor CUDA raises, before it counts
+    or launches anything."""
+    before = _build.launch_counts()
+    with profiling.tracing():
+        with pytest.raises(ValueError, match="no eigenphase kernel for device meta"):
+            weyl.gamma_eigenphases(torch.empty((2, 4, 4), dtype=torch.complex128, device="meta"))
+        assert profiling.table()["counters"] == {}
+    assert _build.launch_counts() == before
+
+
 # ---------------------------------------------------------------- the readers
 
 
@@ -248,8 +276,9 @@ def _kernel(name, x, T, g, iters, rebuilds=None):
     """slam_lm_chain / slam_polish_chain through their C entry, with the
     counter ``rebuilds`` or null."""
     xo, fo = torch.empty_like(x), torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
-    ck._launch(name, ck._p(x), ck._p(T), ck._p(g), ctypes.c_int(iters), ctypes.c_int(g.shape[0]),
-               ctypes.c_int(x.shape[0]), ck._p(xo), ck._p(fo), None if rebuilds is None else ck._p(rebuilds))
+    p = _build.ptr
+    _build.launch(None, name, p(x), p(T), p(g), ctypes.c_int(iters), ctypes.c_int(g.shape[0]),
+                  ctypes.c_int(x.shape[0]), p(xo), p(fo), None if rebuilds is None else p(rebuilds))
     return xo, fo
 
 
