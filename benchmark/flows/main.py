@@ -55,17 +55,24 @@ class BatchOut:
     """What one batch answers, on the host: per target its depth from the
     coverage set (`ks`), the depth of its best answer (`depth`), that
     answer's certified square cost (`cost`, inf where no solve answered) and
-    its parameters (`x[depth][row[i]]`)."""
+    its parameters (`x[depth][row[i]]`); `answered`, the targets certified
+    at or under the threshold."""
 
     ks: np.ndarray
     depth: np.ndarray
     cost: np.ndarray
     x: dict
     row: np.ndarray
+    answered: int
 
     def params(self, i: int):
         d = int(self.depth[i])
         return self.x[d][self.row[i]] if d in self.x else None
+
+    def sample(self, pick: np.ndarray) -> dict:
+        """The answers for the targets ``pick``, as the judge takes them."""
+        return {"ks": self.ks[pick], "depth": self.depth[pick], "cost": self.cost[pick],
+                "x": [self.params(i) for i in pick]}
 
 
 class Flow:
@@ -181,7 +188,8 @@ class Flow:
             rows = torch.as_tensor(offset[best["rec"][idx]] + best["lane"][idx], device=self.device)
             xs[d] = torch.cat([records[j][1] for j in recs])[rows].cpu().numpy()
             row[idx] = np.arange(len(idx))
-        return BatchOut(ks=ks, depth=out_depth, cost=best["cost"], x=xs, row=row)
+        return BatchOut(ks=ks, depth=out_depth, cost=best["cost"], x=xs, row=row,
+                        answered=int((best["cost"] <= self.thresh).sum()))
 
     # ---------------------------------------------------------------- set-up
 

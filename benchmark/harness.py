@@ -4,8 +4,12 @@ flow or per-layer metric is found by its name in `BENCHMARK.json`:
 
 - a configuration: the file that its entry names (`configs/<name>.json`);
 - a traffic mix: `traffic/<name>.json`, whose "targets" names the
-  generator (`traffic/<targets>.py`) and whose "flow" names the entry that
-  the window drives (`flows/<flow>.py`);
+  generator (`traffic/<targets>.py`, given the mix's optional
+  "target_params": a `pool` of "pool_batches" batches of "batch" targets,
+  or `batches` of its own sizes), whose "flow" names the entry that
+  the window drives (`flows/<flow>.py`), and whose optional "judge" names
+  the comparison that decides `correct` (`reference/<judge>.py`; without
+  it `reference/judge.py`, the judge of u3 chains);
 - a per-layer metric: its reader `metrics/<name>.py`, a function
   `read(ctx)` that returns the number, or None where it finds nothing.
 """
@@ -30,7 +34,8 @@ from benchmark.metrics import trace as trace_mod
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "slam_decomposition_tpu")
-CHECK_PER_BATCH = 256  # answers judged from each batch of the window, drawn from the seed
+CHECK_PER_BATCH = 256  # answers judged from each batch of the window, drawn from the seed, unless the mix says
+DEFAULT_JUDGE = "judge"
 TRACE_SECONDS = 1.0  # the traced segment after the window: whole batches, at least two
 TRACE_MIN_BATCHES = 2
 
@@ -90,6 +95,21 @@ def forbidden_modules() -> list:
     return sorted({m.split(".", 1)[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def make_pool(gen_mod, traffic: dict, device) -> tuple:
+    """(the mix's pool on ``device``, each batch's (start, stop) in it): a
+    generator's `batches(seed, device, **target_params)` gives the batch
+    sizes itself (one batch a circuit); otherwise `pool(n, seed, device,
+    **target_params)` gives "pool_batches" batches of "batch" targets."""
+    params = traffic.get("target_params", {})
+    if hasattr(gen_mod, "batches"):
+        pool, sizes = gen_mod.batches(traffic["pool_seed"], device, **params)
+    else:
+        sizes = [traffic["batch"]] * traffic["pool_batches"]
+        pool = gen_mod.pool(sum(sizes), traffic["pool_seed"], device, **params)
+    ends = np.cumsum([0] + sizes).tolist()
+    return pool, list(zip(ends[:-1], ends[1:]))
+
+
 def _seed_ints(seed: int, n: int) -> list:
     """n independent 63-bit seeds from one run seed of any size."""
     return [int(v) for v in np.random.SeedSequence(seed).generate_state(n, dtype=np.uint64) >> np.uint64(1)]
@@ -103,16 +123,24 @@ def _sync(device):
 def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t_start: float | None = None,
         overrides: dict | None = None, log=print) -> dict:
     """One run; returns the result line's object. ``overrides`` changes
-    traffic parameters (tests and readings at other sizes), and may name a
-    ``solver_wrap`` (solver -> solver) that replaces each solver (the
-    control and the planted faults) and a ``check_per_batch``."""
+    traffic parameters (tests and readings at other sizes, such as
+    ``check_per_batch``), and may name a ``solver_wrap`` (solver -> solver)
+    that replaces each solver of a flow that solves, or a ``flow_wrap``
+    (flow -> flow) that replaces the flow (the controls and the planted
+    faults).
+
+    A flow's ``run_batch`` returns an answer object with ``answered``, the
+    count of its targets that it answered (counted against `failed`), and
+    ``sample(pick)``, the answers of the targets ``pick`` as the judge takes
+    them ({key: an array or a list, one entry a target})."""
     t_start = time.perf_counter() if t_start is None else t_start
     overrides = dict(overrides or {})
     wrap = overrides.pop("solver_wrap", None)
-    check_per_batch = overrides.pop("check_per_batch", CHECK_PER_BATCH)
+    flow_wrap = overrides.pop("flow_wrap", None)
     spec = load_spec()
     c = resolve_cell(spec, cell_name)
     config, traffic = c["config"], {**c["traffic"], **overrides}
+    check_per_batch = traffic.get("check_per_batch", CHECK_PER_BATCH)
     device = torch.device(device)
     s_starts, s_warm, s_sample, s_order = _seed_ints(seed, 4)
 
@@ -127,17 +155,23 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
     flow = flow_mod.Flow(config, traffic, device, s_starts, spans)
     if wrap is not None:
         flow.solvers = {k: wrap(s) for k, s in flow.solvers.items()}
-    B = traffic["batch"]
+    if flow_wrap is not None:
+        flow = flow_wrap(flow)
     # one pool for every run of the mix, its batches in an order drawn from the
     # run's seed: every seed gets the same work (with a pool drawn from the
     # seed, the sixteenth-iSwap cell's rate moved ~4% from seed to seed)
-    pool = gen_mod.pool(traffic["pool_batches"] * B, traffic["pool_seed"], device)
-    order = np.random.default_rng(s_order).permutation(traffic["pool_batches"])
+    pool, bounds = make_pool(gen_mod, traffic, device)
+    order = np.random.default_rng(s_order).permutation(len(bounds))
 
-    def start_of(b: int) -> int:
-        return int(order[b % len(order)]) * B
+    def batch_of(b: int) -> tuple:
+        return bounds[int(order[b % len(order)])]
 
-    flow.warm(pool[start_of(0) : start_of(0) + B], s_warm)
+    sizes = set()  # a batch of each size the window takes
+    for b in range(len(bounds)):
+        start, stop = batch_of(b)
+        if stop - start not in sizes:
+            sizes.add(stop - start)
+            flow.warm(pool[start:stop], s_warm)
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -148,23 +182,22 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
     ck.reset_launch_counts()
     spans.reset()
     sample_rng = np.random.default_rng(s_sample)
-    samples = {"rows": [], "ks": [], "depth": [], "cost": [], "x": []}
-    batch_s, attempted, certified, n_batches = [], 0, 0, 0
+    rows, parts = [], collections.defaultdict(list)
+    batch_s, attempted, answered, n_batches = [], 0, 0, 0
     t0 = time.perf_counter()
     setup_s = t0 - t_start
     while True:
-        start = start_of(n_batches)
+        start, stop = batch_of(n_batches)
         tb = time.perf_counter()
-        out = flow.run_batch(pool[start : start + B])
+        out = flow.run_batch(pool[start:stop])
         batch_s.append(time.perf_counter() - tb)
         n_batches += 1
-        attempted += B
-        certified += int((out.cost <= flow.thresh).sum())
-        pick = np.sort(sample_rng.choice(B, size=min(check_per_batch, B), replace=False))
-        samples["rows"].append(start + pick)
-        for key in ("ks", "depth", "cost"):
-            samples[key].append(getattr(out, key)[pick])
-        samples["x"] += [out.params(i) for i in pick]
+        attempted += stop - start
+        answered += out.answered
+        pick = np.sort(sample_rng.choice(stop - start, size=min(check_per_batch, stop - start), replace=False))
+        rows.append(start + pick)
+        for key, part in out.sample(pick).items():
+            parts[key].append(part)
         if time.perf_counter() - t0 >= seconds:
             break
     window_s = time.perf_counter() - t0
@@ -172,9 +205,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     ctx = {
         "window_s": window_s, "span_s": dict(spans.seconds), "lanes": lanes, "attempted": attempted,
-        "certified": certified, "batch_s": batch_s, "setup_s": setup_s, "trace": None,
+        "answered": answered, "batch_s": batch_s, "setup_s": setup_s, "trace": None,
     }
-    log(f"window: {n_batches} batches of {B} targets in {window_s:.6f} s; batch seconds: "
+    log(f"window: {n_batches} batches, {attempted} targets in {window_s:.6f} s; batch seconds: "
         f"{len(batch_s)} samples, median {statistics.median(batch_s):.6f}", file=sys.stderr)
     log("batch seconds: " + " ".join(f"{b:.6f}" for b in batch_s), file=sys.stderr)
 
@@ -183,26 +216,21 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
                    "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
                    "count": 1, "memory_peak_bytes": int(memory_peak)}
     if trace:
-        ctx["trace"] = trace_mod.traced_segment(flow, pool, n_batches, B, start_of, spans, device,
+        ctx["trace"] = trace_mod.traced_segment(flow, pool, n_batches, batch_of, spans, device,
                                                 TRACE_SECONDS, TRACE_MIN_BATCHES)
         device_info["busy_s"] = ctx["trace"]["busy_s"]
         device_info["window_s"] = ctx["trace"]["window_s"]
 
     # ------------------------------------------------------------ judge
-    targets = pool[torch.as_tensor(np.concatenate(samples["rows"]), device=device)].cpu().numpy()
+    targets = pool[torch.as_tensor(np.concatenate(rows), device=device)].cpu().numpy()
     del flow, pool, out
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    from benchmark.reference import judge as judge_mod
-    from benchmark.reference.coverage import coverage_file
-    from slam_decomposition_torch.config import data_dir
-
-    cov_spec = config.get("coverage_gate") or config["basis"]
-    checks = judge_mod.judge(config, coverage_file(data_dir(), cov_spec), {
-        "targets": targets, "ks": np.concatenate(samples["ks"]), "depth": np.concatenate(samples["depth"]),
-        "cost": np.concatenate(samples["cost"]), "x": samples["x"],
-    })
-    correct = judge_mod.passed(checks)
+    answers = {key: np.concatenate(p) if isinstance(p[0], np.ndarray) else [a for part in p for a in part]
+               for key, p in parts.items()}
+    judge_mod = importlib.import_module(f"benchmark.reference.{traffic.get('judge', DEFAULT_JUDGE)}")
+    checks = judge_mod.judge(config, targets, answers)
+    correct = all(c["value"] <= c["limit"] for c in checks.values())
 
     # ------------------------------------------------------------ metrics
     kind = "per_layer" if trace else "end_to_end"
@@ -211,7 +239,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
         value = read_metric(m["name"], ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    result = {"correct": correct, "attempted": attempted, "failed": attempted - certified, "metrics": metrics,
+    result = {"correct": correct, "attempted": attempted, "failed": attempted - answered, "metrics": metrics,
               "device": device_info}
     if trace:
         result["breakdown"] = ctx["trace"]["breakdown"]
@@ -220,8 +248,13 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device="cuda", t
 
 
 def read_metric(name: str, ctx: dict):
-    """A metric from its reader, `metrics/<name>.py`."""
+    """A metric from its reader, `metrics/<name>.py`. A quantity split by the
+    end-to-end metric that it moves, `<reader>.<suffix>` (`device_idle_pct.ks`
+    moves `assigned_targets_per_s`), is read by `metrics/<reader>.py` unless
+    it has a file of its own."""
     path = HERE / "metrics" / f"{name}.py"
+    if not path.exists() and "." in name:
+        path = HERE / "metrics" / f"{name.split('.', 1)[0]}.py"
     if not path.exists():
         raise FileNotFoundError(f"no reader for metric {name!r}: {path}")
     return load_file_module(path, f"benchmark_metric_{name.replace('.', '_').replace('-', '_')}").read(ctx)

@@ -5,6 +5,6 @@ solve, first pass and rescues) per target certified."""
 
 def read(ctx):
     lanes = sum(ctx["lanes"].get("adam_chain", []))
-    if not lanes or not ctx["certified"]:
+    if not lanes or not ctx["answered"]:
         return None
-    return lanes / ctx["certified"]
+    return lanes / ctx["answered"]

@@ -6,8 +6,9 @@ batches more (at least `min_batches`, until `seconds` have passed) under
 `torch.profiler` (host and CUDA activity, kept in memory, never exported).
 From the profiler's events it keeps the device's kernels, copies and sets
 (their names and times) and the benchmark's own host spans (`bench.<name>`
-ranges). The flow records each chain-kernel launch of the segment as
-(kernel, depth, lanes, iterations).
+ranges). A flow that solves (one with `solvers`) records each chain-kernel
+launch of the segment as (kernel, depth, lanes, iterations); a flow that
+solves nothing leaves the launch list and the rebuild counts empty.
 """
 
 from __future__ import annotations
@@ -132,14 +133,16 @@ def fresh_counts(flow, T: torch.Tensor, depth0: np.ndarray, ks_used, seed: int) 
     return out
 
 
-def traced_segment(flow, pool, first_batch: int, B: int, start_of, spans, device, seconds: float,
-                   min_batches: int) -> dict:
+def traced_segment(flow, pool, first_batch: int, batch_of, spans, device, seconds: float, min_batches: int) -> dict:
     """Drive whole batches under the profiler after the window and reduce the
-    trace; also the launches of the segment and the LM's rebuild counts."""
+    trace; also, for a flow that solves, the launches of the segment and the
+    LM's rebuild counts."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    flow.launches = []
+    solves = hasattr(flow, "solvers")
+    if solves:
+        flow.launches = []
     spans.profiling = True
     outs, starts = [], []
     if device.type == "cuda":
@@ -148,19 +151,21 @@ def traced_segment(flow, pool, first_batch: int, B: int, start_of, spans, device
         t0 = time.perf_counter()
         b = first_batch
         while len(outs) < min_batches or time.perf_counter() - t0 < seconds:
-            start = start_of(b)
-            outs.append(flow.run_batch(pool[start : start + B]))
-            starts.append(start)
+            start, stop = batch_of(b)
+            outs.append(flow.run_batch(pool[start:stop]))
+            starts.append((start, stop))
             b += 1
         window_s = time.perf_counter() - t0
     spans.profiling = False
-    launches, flow.launches = flow.launches, None
     ops, host = profile_events(prof)
     red = reduce(ops, host, window_s)
-    red["launches"] = launches
     red["batches"] = len(outs)
-    T = torch.cat([pool[s : s + B] for s in starts])
+    if not solves:
+        red["launches"], red["fresh"] = [], {}
+        return red
+    red["launches"], flow.launches = flow.launches, None
+    T = torch.cat([pool[start:stop] for start, stop in starts])
     depth0 = np.maximum(np.concatenate([o.ks for o in outs]), flow.k_min)
-    ks_used = {k for _, k, _, _ in launches}
+    ks_used = {k for _, k, _, _ in red["launches"]}
     red["fresh"] = fresh_counts(flow, T, depth0, ks_used, first_batch)
     return red

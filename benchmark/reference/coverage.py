@@ -16,6 +16,7 @@ least 1e-8): the tolerance the coverage sets are used with.
 
 from __future__ import annotations
 
+import os
 import pathlib
 import pickle
 
@@ -48,6 +49,19 @@ def coverage_file(data_dir: pathlib.Path, spec: dict) -> pathlib.Path:
     """The cached set of a conversion-gain gate, by the file name the sets are saved under."""
     key = f"2QGate({spec['gc']:.8f}, {spec['gg']:.8f}, {spec['t']:.8f})"
     return data_dir / f"polytope_coverage_{[key]}.pkl"
+
+
+def data_dir() -> pathlib.Path:
+    """Where the cached sets lie: the JAX package's data directory of this
+    checkout, read as raw files, or ``SLAM_DATA_DIR``, which moves it for
+    the port too."""
+    env = os.environ.get("SLAM_DATA_DIR")
+    return pathlib.Path(env) if env else pathlib.Path(__file__).resolve().parents[2] / "slam_decomposition_tpu" / "data"
+
+
+def config_coverage(config: dict) -> "Coverage":
+    """The coverage set of a configuration (its coverage gate, else its basis)."""
+    return Coverage(coverage_file(data_dir(), config.get("coverage_gate") or config["basis"]))
 
 
 def _rows(rows) -> np.ndarray:
@@ -119,10 +133,12 @@ def monodromy_reps(U: np.ndarray) -> np.ndarray:
     """(m, 4, 4) unitaries -> (m, 2, 4) both monodromy representatives: the
     eigenphases of m = M^T M, M = B^dag U_s B in the magic basis B, U_s = U
     scaled into SU(4), as alcove points; the second for the class of -U
-    (every phase moved by half a turn)."""
+    (every phase moved by half a turn). Computed in U's precision (the
+    benchmark's control passes complex64)."""
     det = np.linalg.det(U)
     Us = U * (np.abs(det) ** -0.25 * np.exp(-1j * np.angle(det) / 4.0))[:, None, None]
-    M = MAGIC.conj().T @ Us @ MAGIC
+    B = MAGIC.astype(U.dtype)
+    M = B.conj().T @ Us @ B
     m = np.swapaxes(M, 1, 2) @ M
     a = np.angle(np.linalg.eigvals(m)) / (2.0 * np.pi)
     return np.stack([_alcove(a.copy()), _alcove(a + 0.5)], axis=1)

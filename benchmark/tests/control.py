@@ -1,5 +1,8 @@
-"""The control and the planted faults of the judgement, as solver wrappers
-that `harness.run` takes (``overrides={"solver_wrap": ...}``).
+"""The controls and the planted faults of the judgement: solver wrappers
+that `harness.run` takes for the main flow (``overrides={"solver_wrap":
+...}``), flow wrappers for the ks flow (``overrides={"flow_wrap": ...}``).
+
+The main flow:
 
 - `F32Certified`: the control. The program's own f32 path certifies: the
   solver's ranking pass (Adam, the f32 LM) and each target's best start,
@@ -12,12 +15,24 @@ that `harness.run` takes (``overrides={"solver_wrap": ...}``).
   they get their first start and the certificate of the first half's.
 - `AnswerAltered`: the first target of each chunk gets its first parameter
   moved by 1e-3 after the solve, its certificate kept.
+
+The ks flow:
+
+- `KsF32Reference`: the control. The reference takes the program's place
+  and assigns each target its depth in float32 (complex64 eigenphases),
+  the precision below the float64 that the configuration states.
+- `KsRaised`: the first target of each batch gets its depth raised by 1.
+- `KsMissing`: the first target of each batch gets no depth (-1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from benchmark.flows.ks import KsOut
+from benchmark.reference import ks as ks_reference
+from benchmark.reference.coverage import config_coverage
 from slam_decomposition_torch.opt.gauss_newton import certificate
 
 
@@ -59,3 +74,49 @@ class AnswerAltered(_Wrapped):
 
 
 FAULTS = {"state_unchanged": StateUnchanged, "half_left_out": HalfLeftOut, "answer_altered": AnswerAltered}
+
+
+class KsF32Reference:
+    def __init__(self, config: dict):
+        self.coverage = config_coverage(config)
+
+    def warm(self, T, start_seed):
+        pass
+
+    def run_batch(self, T):
+        return KsOut(ks_reference.depths(self.coverage, T.cpu().numpy().astype(np.complex64)))
+
+
+class _KsAltered:
+    def __init__(self, flow):
+        self.flow = flow
+
+    def warm(self, T, start_seed):
+        self.flow.warm(T, start_seed)
+
+    def run_batch(self, T):
+        ks = self.flow.run_batch(T).ks.copy()
+        self.alter(ks)
+        return KsOut(ks)
+
+
+class KsRaised(_KsAltered):
+    @staticmethod
+    def alter(ks):
+        ks[0] += 1
+
+
+class KsMissing(_KsAltered):
+    @staticmethod
+    def alter(ks):
+        ks[0] = -1
+
+
+KS_FAULTS = {"ks_raised": KsRaised, "ks_missing": KsMissing}
+
+
+def overrides(flow: str, config: dict) -> dict:
+    """The `harness.run` overrides that put a flow's control in place."""
+    if flow == "ks":
+        return {"flow_wrap": lambda _: KsF32Reference(config)}
+    return {"solver_wrap": F32Certified}

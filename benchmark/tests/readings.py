@@ -1,6 +1,7 @@
 """Readings of the judged numbers on the card, from which their limits are
-set: the program on many seeds and its f32 control (`control.F32Certified`)
-on a few, at the cell's own size, all in one process.
+set: the program on many seeds and its f32 control (`control.overrides`:
+the main flow's f32 certification, the ks flow's f32 reference) on a few,
+at the cell's own size, all in one process.
 
     python3 benchmark/tests/readings.py --workload <cell> --seconds <s> \
         --check-per-batch <n> --seeds <s1 ...> --control-seeds <c1 ...>
@@ -28,17 +29,18 @@ def main():
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--check-per-batch", type=int, required=True)
-    ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--seeds", type=int, nargs="*", default=[])
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--traffic", type=json.loads, default={}, help="traffic parameters to override (JSON)")
     args = ap.parse_args()
     readings = {"program": {}, "control": {}}
+    cell = harness.resolve_cell(harness.load_spec(), args.workload)
     for side, seeds in (("program", args.seeds), ("control", args.control_seeds)):
         for seed in seeds:
             over = {**args.traffic, "check_per_batch": args.check_per_batch}
             if side == "control":
-                over["solver_wrap"] = control.F32Certified
+                over.update(control.overrides(cell["traffic"]["flow"], cell["config"]))
             t0 = time.perf_counter()
             r = harness.run(args.workload, seed, args.seconds, False, args.device, overrides=over,
                             log=lambda *a, **k: None)

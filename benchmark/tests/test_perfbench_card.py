@@ -9,6 +9,8 @@ from benchmark import harness
 from benchmark.tests import control
 
 SMALL = {"batch": 20000, "chunk": 5000, "pool_batches": 2, "check_per_batch": 2000}
+# the ks flow at its own circuits, every answer of a short window judged
+KS_SMALL = {"check_per_batch": 4096}
 
 
 def _card():
@@ -28,8 +30,22 @@ def test_small_run_on_the_card(cell):
 
 
 @pytest.mark.cuda
-def test_control_on_the_card():
+def test_ks_run_on_the_card():
     _card()
-    r = harness.run("sqiswap.haar-main", SEED, 0.1, False, "cuda",
-                    overrides={**SMALL, "solver_wrap": control.F32Certified}, log=lambda *a, **k: None)
+    r = harness.run("sixteenth_iswap.circuits-ks", SEED, 0.1, True, "cuda", overrides=KS_SMALL,
+                    log=lambda *a, **k: None)
+    assert r["correct"] is True, r["checks"]
+    assert r["device"]["busy_s"] > 0 and 0 < r["metrics"]["device_idle_pct.ks"]["value"] < 100
+    for name in ("ks_coords_pct.ks", "ks_member_pct.ks", "ks_self_pct"):
+        assert 0 < r["metrics"][name]["value"] < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell, small, seconds", [("sqiswap.haar-main", SMALL, 0.0),
+                                                  ("sixteenth_iswap.circuits-ks", KS_SMALL, 0.2)])
+def test_control_on_the_card(cell, small, seconds):
+    _card()
+    c = harness.resolve_cell(harness.load_spec(), cell)
+    over = {**small, **control.overrides(c["traffic"]["flow"], c["config"])}
+    r = harness.run(cell, SEED, seconds, False, "cuda", overrides=over, log=lambda *a, **k: None)
     assert r["correct"] is False

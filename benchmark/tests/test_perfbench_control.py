@@ -4,7 +4,7 @@ CPU. (The exchange between chips: no cell runs on more than one.)"""
 
 import numpy as np
 import pytest
-from conftest import SEED, TINY
+from conftest import SEED, TINY, TINY_CIRCUITS
 
 from benchmark import harness
 from benchmark.flows import main as flow_main
@@ -14,7 +14,8 @@ QUIET = {"log": lambda *a, **k: None}
 
 
 def _run(cell="sqiswap.haar-main", **extra):
-    return harness.run(cell, SEED + 5, 0.05, False, "cpu", overrides={**TINY, **extra}, **QUIET)
+    tiny = TINY_CIRCUITS if cell.endswith("circuits-ks") else TINY
+    return harness.run(cell, SEED + 5, 0.05, False, "cpu", overrides={**tiny, **extra}, **QUIET)
 
 
 def test_control_is_not_correct():
@@ -50,3 +51,19 @@ def test_unanswered_target_is_not_correct():
 
     r = _run(solver_wrap=NoAnswer)
     assert r["correct"] is False and r["checks"]["unanswered"]["value"] == TINY["check_per_batch"]
+
+
+def test_ks_control_is_not_correct():
+    """The f32 reference in the program's place misplaces QFT-8's blocks on
+    the layer faces (6 of its 32)."""
+    cell = "sixteenth_iswap.circuits-ks"
+    c = harness.resolve_cell(harness.load_spec(), cell)
+    r = _run(cell, **control.overrides(c["traffic"]["flow"], c["config"]))
+    assert r["correct"] is False and r["checks"]["ks_mismatch"]["value"] >= 1, r["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(control.KS_FAULTS))
+def test_planted_ks_fault_is_not_correct(fault):
+    r = _run("sixteenth_iswap.circuits-ks", flow_wrap=control.KS_FAULTS[fault])
+    key = {"ks_raised": "ks_mismatch", "ks_missing": "unanswered"}[fault]
+    assert r["correct"] is False and r["checks"][key]["value"] >= 1, r["checks"]

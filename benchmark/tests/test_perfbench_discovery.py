@@ -4,6 +4,7 @@ there: the harness finds each by its name."""
 
 import hashlib
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -46,7 +47,10 @@ def test_new_files_are_found_by_name(tmp_path):
         "r = harness.run('sqiswap_wide.haar_tiny', 11, 0.05, False, 'cpu', overrides={'check_per_batch': 4}, "
         "log=lambda *a, **k: None); print(json.dumps(r))"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=600)
+    # the copy holds no data: the reference and the port read the repository's cached sets
+    env = {**os.environ, "SLAM_DATA_DIR": str(ROOT / "slam_decomposition_tpu" / "data")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=600,
+                         env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     r = json.loads(out.stdout.strip().splitlines()[-1])
     assert r["correct"] is True and r["attempted"] == 16
@@ -54,3 +58,16 @@ def test_new_files_are_found_by_name(tmp_path):
     assert "setup_s" in r["metrics"] and "certified_targets_per_s" not in r["metrics"]
     after = _digests(tmp_path / "benchmark")
     assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_every_mix_names_a_flow_and_judge_that_exist():
+    b = ROOT / "benchmark"
+    mixes = sorted((b / "traffic").glob("*.json"))
+    assert mixes
+    for path in mixes:
+        mix = json.loads(path.read_text())
+        assert mix["name"] == path.stem
+        assert (b / "traffic" / f"{mix['targets']}.py").is_file(), path.name
+        assert (b / "flows" / f"{mix['flow']}.py").is_file(), path.name
+        if "judge" in mix:
+            assert (b / "reference" / f"{mix['judge']}.py").is_file(), path.name

@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 FORBIDDEN = {"jax", "jaxlib", "flax", "slam_decomposition_tpu"}
 
@@ -18,12 +20,15 @@ def _py(code: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def test_a_run_loads_no_jax():
+@pytest.mark.parametrize("cell", ["sqiswap.haar-main", "sixteenth_iswap.circuits-ks"])
+def test_a_run_loads_no_jax(cell):
+    small = {"batch": 16, "chunk": 8, "restarts": 2, "pool_batches": 1, "check_per_batch": 4}
+    if cell.endswith("circuits-ks"):
+        small["target_params"] = {"circuits": [{"family": "qft", "qubits": 6}]}
     code = (
         "import sys, json; sys.path.insert(0, '.'); import torch; torch.set_num_threads(2); "
         "from benchmark import harness; from benchmark.tests import control; "
-        "harness.run('sqiswap.haar-main', 5, 0.05, True, 'cpu', overrides={'batch': 16, 'chunk': 8, "
-        "'restarts': 2, 'pool_batches': 1, 'check_per_batch': 4}, log=lambda *a, **k: None); "
+        f"harness.run({cell!r}, 5, 0.05, True, 'cpu', overrides={small!r}, log=lambda *a, **k: None); "
         "print(json.dumps(sorted({m.split('.', 1)[0] for m in sys.modules})))"
     )
     top = set(json.loads(_py(code)))
@@ -33,7 +38,7 @@ def test_a_run_loads_no_jax():
 
 def test_reference_loads_nothing_of_the_port():
     code = (
-        "import sys, json; sys.path.insert(0, '.'); import benchmark.reference.judge; "
+        "import sys, json; sys.path.insert(0, '.'); import benchmark.reference.judge, benchmark.reference.ks; "
         "print(json.dumps(sorted({m.split('.', 1)[0] for m in sys.modules})))"
     )
     top = set(json.loads(_py(code)))
